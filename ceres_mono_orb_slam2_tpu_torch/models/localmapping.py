@@ -1,0 +1,473 @@
+"""LocalMapping: map building around new keyframes (reference
+src/LocalMapping.cc), serial mode.
+
+Port of `ceres_mono_orb_slam2_tpu/models/localmapping.py` without a loop
+closer: process new keyframe -> cull recent map points -> triangulate new
+points against covisible keyframes -> fuse duplicates -> local bundle
+adjustment -> cull redundant keyframes. Epipolar search, triangulation, fuse
+and local BA run on the device; graph bookkeeping stays on the host.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ceres_mono_orb_slam2_tpu_torch.models.map import KeyFrame, Map
+from ceres_mono_orb_slam2_tpu_torch.ops import mapping_batch, matcher, optim
+from ceres_mono_orb_slam2_tpu_torch.ops.frustum import frustum_and_scale
+
+
+# the dense Schur's (M, P, 6, 3) cross tensor is the guard's measure, as in
+# the JAX package; past it the matrix-free CG solver is needed, which waits
+# for a later port
+_DENSE_BA_MAX_BLOCKS = 1 << 21
+
+
+class LocalMapping:
+    # covisible window of CreateNewMapPoints (reference LocalMapping.cc:202)
+    TRI_BATCH = 20
+
+    def __init__(self, config, map_: Map, device="cpu"):
+        self.config = config
+        self.map = map_
+        self.device = torch.device(device)
+        self.scale_factors = config.orb.scale_factors
+        self.level_sigma2 = config.orb.level_sigma2
+        self.inv_sigma2 = config.orb.inv_level_sigma2
+        self.n_levels = config.orb.n_levels
+        self.log_scale = float(np.log(config.orb.scale_factor))
+        K = config.camera.K.astype(np.float32)
+        self.jK = self._dev(K)
+        self.j_invK = self._dev(np.linalg.inv(K.astype(np.float64)).astype(np.float32))
+        self.j_ls2 = self._dev(self.level_sigma2.astype(np.float32))
+        self.j_sfs = self._dev(self.scale_factors.astype(np.float32))
+        self.j_is2 = self._dev(self.inv_sigma2.astype(np.float32))
+        self.ratio_factor = 1.5 * float(config.orb.scale_factor)
+        self.queue: List[int] = []
+        self.recent_points: List[int] = []
+        self.abort_ba = False
+        self._accepting = True
+        self.n_local_ba = 0
+
+    def _dev(self, a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+
+    # ------------------------------------------------------------- interface
+
+    def insert_keyframe(self, kf_id: int):
+        self.queue.append(kf_id)
+        self.abort_ba = True
+
+    def accepting(self) -> bool:
+        return self._accepting
+
+    def interrupt_ba(self):
+        self.abort_ba = True
+
+    def reset(self):
+        self.queue.clear()
+        self.recent_points.clear()
+
+    def process_queue(self):
+        """Drain the keyframe queue. Keyframe acceptance is off while a pass
+        runs (AcceptKeyFrames(false), reference LocalMapping.cc:37-60)."""
+        self._accepting = False
+        try:
+            while self.queue:
+                kf = self.map.keyframes.get(self.queue.pop(0))
+                if kf is None or kf.bad:
+                    continue
+                self._process(kf)
+        finally:
+            self._accepting = True
+
+    # ------------------------------------------------------------- pipeline
+
+    def _process(self, kf: KeyFrame):
+        epoch = self.map.map_epoch
+        self._process_new_keyframe(kf)
+        self._map_point_culling(kf)
+        if self._pass_stale(kf, epoch):
+            return
+        self._create_new_map_points(kf)
+        if self._pass_stale(kf, epoch):
+            return
+        if not self.queue:
+            self._search_in_neighbors(kf)
+        self.abort_ba = False
+        if self._pass_stale(kf, epoch):
+            return
+        if not self.queue and self.map.n_keyframes() > 2:
+            self._local_bundle_adjustment(kf)
+            if self._pass_stale(kf, epoch):
+                return
+            self._keyframe_culling(kf)
+
+    def _pass_stale(self, kf: KeyFrame, epoch: int) -> bool:
+        """True if a reset or a cull invalidated this mapping pass."""
+        return self.map.map_epoch != epoch or kf.bad or kf.id not in self.map.keyframes
+
+    def _process_new_keyframe(self, kf: KeyFrame):
+        """Reference ProcessNewKeyFrame (LocalMapping.cc:129-165)."""
+        m = self.map
+        touched = []
+        for i in np.nonzero(kf.mp_ids >= 0)[0]:
+            mp = m.get_mp(int(kf.mp_ids[i]))
+            if mp is None:
+                kf.mp_ids[i] = -1
+                continue
+            if kf.id not in mp.observations:
+                m.add_observation(mp, kf, int(i))
+                touched.append(mp.id)
+        m.refresh_points(touched, self.scale_factors)
+        m.update_connections(kf)
+
+    def _map_point_culling(self, kf: KeyFrame):
+        """Reference MapPointCulling (LocalMapping.cc:167-194)."""
+        m = self.map
+        survivors = []
+        for mid in self.recent_points:
+            mp = m.map_points.get(mid)
+            if mp is None or mp.bad:
+                continue
+            if mp.found_ratio() < 0.25:
+                m.set_bad_map_point(mp)
+            elif kf.id - mp.first_kf_id >= 2 and mp.n_obs <= 2:
+                m.set_bad_map_point(mp)
+            elif kf.id - mp.first_kf_id >= 3:
+                pass  # graduated
+            else:
+                survivors.append(mid)
+        self.recent_points = survivors
+
+    def _median_depth(self, kf: KeyFrame) -> float:
+        """Reference ComputeSceneMedianDepth (KeyFrame.cc:555-581)."""
+        m = self.map
+        ids = kf.mp_ids[kf.mp_ids >= 0]
+        ids = ids[m.mp_alive[ids]]
+        if len(ids) == 0:
+            return -1.0
+        return float(np.median(m.mp_pos[ids] @ kf.Rcw[2] + kf.tcw[2]))
+
+    def _create_new_map_points(self, kf: KeyFrame):
+        """Reference CreateNewMapPoints (LocalMapping.cc:196-396): epipolar
+        search + triangulation against the top-20 covisible keyframes that
+        pass the baseline / median-depth gate."""
+        m = self.map
+        O1 = kf.camera_center()
+        nb_kfs = []
+        for nb_id in kf.best_covisible(20):
+            kf2 = m.keyframes.get(nb_id)
+            if kf2 is None or kf2.bad:
+                continue
+            baseline = float(np.linalg.norm(kf2.camera_center() - O1))
+            med_depth = self._median_depth(kf2)
+            if med_depth <= 0 or baseline / med_depth < 0.01:
+                continue
+            nb_kfs.append(kf2)
+        if not nb_kfs:
+            return
+        nb_kfs = nb_kfs[: self.TRI_BATCH]
+        cur = kf.dev_payload(self.device)
+        nb = [k.dev_payload(self.device) for k in nb_kfs]
+        stack = lambda i: torch.stack([d[i] for d in nb])  # noqa: E731
+        free2 = np.stack([(k.mp_ids < 0) & k.kp_valid for k in nb_kfs])
+        idx, good, X = mapping_batch.triangulate_with_neighbors(
+            self.jK, self.j_invK, self._dev(kf.Rcw), self._dev(kf.tcw),
+            cur[0], cur[1], cur[2], cur[3], self._dev((kf.mp_ids < 0) & kf.kp_valid),
+            self._dev(np.stack([k.Rcw for k in nb_kfs])),
+            self._dev(np.stack([k.tcw for k in nb_kfs])),
+            stack(0), stack(1), stack(2), stack(3), self._dev(free2),
+            self.j_ls2, self.j_sfs, self.ratio_factor)
+        idx, good, X = idx.cpu().numpy(), good.cpu().numpy(), X.cpu().numpy()
+
+        # host creation in neighbour order; the first neighbour to
+        # triangulate a keypoint slot wins (the reference's sequential loop)
+        created = []
+        for b, kf2 in enumerate(nb_kfs):
+            if kf2.bad or kf.bad:
+                continue
+            for k in np.nonzero(good[b])[0]:
+                ia, ib = int(k), int(idx[b, k])
+                if kf.mp_ids[ia] >= 0 or kf2.mp_ids[ib] >= 0:
+                    continue
+                mp = m.new_map_point(X[b, k].astype(np.float32), kf.desc[ia], kf.id)
+                mp.first_kf_id = kf.id
+                m.add_observation(mp, kf, ia)
+                m.add_observation(mp, kf2, ib)
+                created.append(mp.id)
+                self.recent_points.append(mp.id)
+        m.refresh_points(created, self.scale_factors)
+
+    # forward-fuse target chunk (20 first-order + up to 12 second-order)
+    FUSE_BATCH = 32
+
+    def _search_in_neighbors(self, kf: KeyFrame):
+        """Reference SearchInNeighbors (LocalMapping.cc:398-488): fuse the
+        current keyframe's points into its 1st+2nd-order neighbours (all
+        targets against one map snapshot) and theirs back into it."""
+        m = self.map
+        targets = []
+        seen = {kf.id}
+        for nb in kf.best_covisible(20):
+            if nb not in seen:
+                seen.add(nb)
+                nkf = m.keyframes.get(nb)
+                if nkf is None or nkf.bad:
+                    continue
+                targets.append(nkf)
+                for nb2 in nkf.best_covisible(5):
+                    if nb2 not in seen:
+                        seen.add(nb2)
+                        nkf2 = m.keyframes.get(nb2)
+                        if nkf2 is not None and not nkf2.bad:
+                            targets.append(nkf2)
+        cur_mps = [m.resolve(int(mid)) for mid in kf.mp_ids if mid >= 0]
+        cur_mps = sorted({mid for mid in cur_mps if mid >= 0})
+        if targets and cur_mps:
+            for c0 in range(0, len(targets), self.FUSE_BATCH):
+                self._fuse_forward_batch(targets[c0:c0 + self.FUSE_BATCH], cur_mps)
+        # reverse fuse: all target map points into the current keyframe
+        fuse_ids = []
+        fs = set()
+        for tkf in targets:
+            for mid in tkf.mp_ids:
+                if mid >= 0 and mid not in fs:
+                    fuse_ids.append(int(mid))
+                    fs.add(mid)
+        self._fuse_into(kf, fuse_ids)
+        if self._pass_stale(kf, m.map_epoch):
+            return
+        m.refresh_points([int(mid) for mid in kf.mp_ids[kf.mp_ids >= 0]], self.scale_factors)
+        m.update_connections(kf)
+
+    def _point_block(self, mp_ids):
+        ga = np.asarray(mp_ids, np.int64)
+        m = self.map
+        return (self._dev(m.mp_pos[ga]), self._dev(m.mp_normal[ga]), self._dev(m.mp_mind[ga]),
+                self._dev(m.mp_maxd[ga]), self._dev(m.mp_desc[ga]))
+
+    def _merge(self, tkf: KeyFrame, mp_id: int, kp: int, touched: list):
+        """ORBmatcher::Fuse tail (ORBmatcher.cc:806-840): bind, or replace the
+        point with fewer observations by the other."""
+        m = self.map
+        mid = m.resolve(mp_id)
+        mp = m.map_points.get(mid) if mid >= 0 else None
+        if mp is None or mp.bad or tkf.id in mp.observations:
+            return
+        existing_id = m.resolve(int(tkf.mp_ids[kp]))
+        if existing_id >= 0:
+            existing = m.map_points[existing_id]
+            if existing.id == mp.id:
+                return
+            if existing.n_obs > mp.n_obs:
+                m.replace_map_point(mp, existing, refresh=False)
+                touched.append(existing.id)
+            else:
+                m.replace_map_point(existing, mp, refresh=False)
+                touched.append(mp.id)
+        else:
+            m.add_observation(mp, tkf, kp)
+
+    def _fuse_forward_batch(self, targets: List[KeyFrame], mp_ids: List[int], th: float = 3.0):
+        """Forward half of SearchInNeighbors: one shared map-point block
+        projected into every target keyframe; the merge stays on the host."""
+        m = self.map
+        mp_arr = np.asarray(mp_ids, np.int64)
+        mvalid = np.stack([~np.isin(mp_arr, t.mp_ids[t.mp_ids >= 0]) for t in targets])
+        tgt = [t.dev_payload(self.device) for t in targets]
+        bounds = (self._dev(m.image_bounds) if m.image_bounds is not None else None)
+        idx, valid = mapping_batch.fuse_into_targets(
+            self.jK, self._dev(np.stack([t.Rcw for t in targets])),
+            self._dev(np.stack([t.tcw for t in targets])),
+            torch.stack([d[0] for d in tgt]), torch.stack([d[1] for d in tgt]),
+            torch.stack([d[3] for d in tgt]), torch.stack([d[4] for d in tgt]),
+            *self._point_block(mp_ids), self._dev(mvalid), self.log_scale, self.n_levels,
+            self.j_sfs, self.j_is2, bounds=bounds, th=th)
+        idx, valid = idx.cpu().numpy(), valid.cpu().numpy()
+        touched = []
+        for b, tkf in enumerate(targets):
+            if tkf.bad:
+                continue
+            for q in np.nonzero(valid[b])[0]:
+                self._merge(tkf, mp_ids[q], int(idx[b, q]), touched)
+        if touched:
+            m.refresh_points(touched, self.scale_factors)
+
+    def _fuse_into(self, kf: KeyFrame, mp_ids: List[int], th: float = 3.0):
+        """Reverse fuse into the current keyframe (ORBmatcher::Fuse), without
+        an image-bounds gate: the search window implies the projection lands
+        near a real keypoint."""
+        m = self.map
+        mp_ids = [m.resolve(mid) for mid in mp_ids]
+        mp_ids = [mid for mid in mp_ids if mid >= 0 and kf.id not in m.map_points[mid].observations]
+        if not mp_ids:
+            return
+        pos, normal, mind, maxd, desc = self._point_block(mp_ids)
+        bounds = torch.tensor([-1e6, 1e6, -1e6, 1e6], dtype=torch.float32, device=self.device)
+        uv, level, _, visible = frustum_and_scale(
+            self._dev(kf.Rcw), self._dev(kf.tcw), self.jK, bounds, pos, normal, mind, maxd,
+            torch.ones(len(mp_ids), dtype=torch.bool, device=self.device),
+            self.log_scale, self.n_levels)
+        kp_und, kp_oct, _, kp_desc, kp_valid = kf.dev_payload(self.device)
+        idx, _, valid = matcher.search_fuse(
+            kp_und, kp_oct, matcher.unpack_bits_pm1(kp_desc), kp_valid, uv, level,
+            matcher.unpack_bits_pm1(desc), visible, self.j_sfs, th=th,
+            inv_level_sigma2=self.j_is2)
+        ii, vi = idx.cpu().numpy(), valid.cpu().numpy()
+        if kf.bad:
+            return
+        touched = []
+        for q in np.nonzero(vi)[0]:
+            self._merge(kf, mp_ids[q], int(ii[q]), touched)
+        if touched:
+            m.refresh_points(touched, self.scale_factors)
+
+    # -------------------------------------------------------------- local BA
+
+    def _local_bundle_adjustment(self, kf: KeyFrame):
+        """Reference LocalBundleAdjustment (CeresOptimizer.cc:344-599): the
+        current KF + covisibles are free, keyframes that see local points but
+        are not covisible are fixed; a two-pass robust -> trimmed solve whose
+        second half is skipped when a new keyframe interrupted it; outlier
+        observations are erased afterwards."""
+        m = self.map
+        prep = self._lba_build(kf)
+        if prep is None:
+            return
+        kf_ids, kf_slot, mp_ids, oj_all, op_all, fixed, R, t, pts, ouv, ow = prep
+        P, M = len(kf_ids), len(mp_ids)
+        if P * M > _DENSE_BA_MAX_BLOCKS:
+            raise NotImplementedError(
+                f"local BA window of {P} poses x {M} points needs the matrix-free CG "
+                "solver (bundle_adjustment_cg), which is not ported yet")
+        d = self._dev
+        args = (d(op_all.astype(np.int64)), d(oj_all.astype(np.int64)), d(ouv), d(ow),
+                torch.ones(len(op_all), dtype=torch.bool, device=self.device), d(fixed),
+                torch.ones(M, dtype=torch.bool, device=self.device))
+        res = optim.bundle_adjustment(self.jK, d(R), d(t), d(pts), *args,
+                                      iters_huber=5, iters_trimmed=5)
+        if not self.abort_ba:
+            res = optim.bundle_adjustment(self.jK, res.R, res.t, res.points, *args,
+                                          iters_huber=0, iters_trimmed=5)
+        self.n_local_ba += 1
+        Rn, tn, ptsn, inl = (a.cpu().numpy() for a in (res.R, res.t, res.points, res.inlier_obs))
+        for k, i in kf_slot.items():
+            okf = m.keyframes.get(k)
+            if okf is not None and not okf.bad and not fixed[i]:
+                okf.Rcw = Rn[i]
+                okf.tcw = tn[i]
+        live_ids = []
+        for i, mid in enumerate(mp_ids):
+            mp = m.map_points.get(mid)
+            if mp is not None and not mp.bad:
+                mp.pos = ptsn[i]
+                live_ids.append(mid)
+        m.refresh_points(live_ids, self.scale_factors, descriptors=False)
+        # erase outlier observations (CeresOptimizer.cc:573-581)
+        for q in np.nonzero(~inl)[0]:
+            mp = m.map_points.get(mp_ids[oj_all[q]])
+            if mp is not None and not mp.bad:
+                m.erase_observation(mp, kf_ids[op_all[q]])
+
+    def _lba_build(self, kf: KeyFrame):
+        """Local-BA window and observation arrays, or None when degenerate."""
+        m = self.map
+        # free window: current KF + covisibles, capped at max_local_keyframes
+        n_free = max(1, self.config.shapes.max_local_keyframes - 1)
+        local_ids = [kf.id] + kf.best_covisible(min(len(kf.ordered_neighbors), n_free))
+        local_ids = [k for k in local_ids if k in m.keyframes and not m.keyframes[k].bad]
+        local_set = set(local_ids)
+        cat = np.concatenate([m.keyframes[k].mp_ids for k in local_ids])
+        uniq = np.unique(cat[cat >= 0])
+        mp_ids = [int(mid) for mid in uniq if m.get_mp(int(mid)) is not None]
+        if not mp_ids:
+            return None
+        mp_arr = np.asarray(mp_ids, np.int64)  # ascending
+
+        fixed_ids = []
+        fixed_set = set()
+        for mid in mp_ids:
+            for ok_id in m.map_points[mid].observations:
+                if ok_id not in local_set and ok_id not in fixed_set:
+                    okf = m.keyframes.get(ok_id)
+                    if okf is not None and not okf.bad:
+                        fixed_ids.append(ok_id)
+                        fixed_set.add(ok_id)
+        # cap the fixed set: keep the observers with the most window points
+        max_fixed = 4 * self.config.shapes.max_local_keyframes - len(local_ids)
+        if len(fixed_ids) > max_fixed > 0:
+            counts = [int(np.isin(m.keyframes[k].mp_ids, mp_arr).sum()) for k in fixed_ids]
+            order = np.argsort(counts)[::-1][:max_fixed]
+            fixed_ids = [fixed_ids[i] for i in sorted(order)]
+
+        kf_ids = local_ids + fixed_ids
+        kf_slot = {k: i for i, k in enumerate(kf_ids)}
+        op_l, oj_l, uv_l, ow_l = [], [], [], []
+        for i_k, k in enumerate(kf_ids):
+            okf = m.keyframes[k]
+            kidx = np.nonzero(okf.mp_ids >= 0)[0]
+            ids = okf.mp_ids[kidx]
+            pos = np.minimum(np.searchsorted(mp_arr, ids), len(mp_arr) - 1)
+            hit = mp_arr[pos] == ids  # fixed KFs keep only window points
+            kidx = kidx[hit]
+            op_l.append(np.full(len(kidx), i_k, np.int32))
+            oj_l.append(pos[hit].astype(np.int32))
+            uv_l.append(okf.kp_und[kidx])
+            ow_l.append(self.inv_sigma2[okf.kp_octave[kidx]].astype(np.float32))
+        op_all = np.concatenate(op_l)
+        oj_all = np.concatenate(oj_l)
+        if len(op_all) < 10:
+            return None
+        R = np.stack([m.keyframes[k].Rcw for k in kf_ids]).astype(np.float32)
+        t = np.stack([m.keyframes[k].tcw for k in kf_ids]).astype(np.float32)
+        fixed = np.array([k in fixed_set or k == 0 for k in kf_ids])
+        pts = m.mp_pos[mp_arr].astype(np.float32)
+        return (kf_ids, kf_slot, mp_ids, oj_all, op_all, fixed, R, t, pts,
+                np.concatenate(uv_l).astype(np.float32), np.concatenate(ow_l))
+
+    # -------------------------------------------------------------- KF culling
+
+    def _keyframe_culling(self, kf: KeyFrame):
+        """Reference KeyFrameCulling (LocalMapping.cc:576-637): a local KF is
+        redundant if >= 90% of its map points are seen by >= 3 other
+        keyframes at the same or finer scale."""
+        m = self.map
+        table = None
+        for k_id in kf.best_covisible(len(kf.ordered_neighbors)):
+            okf = m.keyframes.get(k_id)
+            if okf is None or okf.bad or okf.id == 0:
+                continue
+            if table is None:
+                table = m._obs_arrays()
+            n_mps, n_redundant = self._redundancy(okf, table)
+            if n_mps > 0 and n_redundant > 0.9 * n_mps:
+                m.erase_keyframe(okf)
+                table = None  # erases change later candidates' counts
+
+    def _redundancy(self, okf: KeyFrame, table) -> tuple:
+        """(bound live points, points seen by >= 3 other KFs at octave <=
+        level + 1) of one cull candidate, over the global observation table."""
+        m = self.map
+        mid_s, kfid_s, oct_s = table
+        rows = np.nonzero(okf.mp_ids >= 0)[0]
+        ids = okf.mp_ids[rows]
+        alive = m.mp_alive[ids]
+        rows, ids = rows[alive], ids[alive]
+        n_mps = len(ids)
+        eligible = np.nonzero(m.mp_nobs[ids] > 3)[0]
+        if n_mps == 0 or len(eligible) == 0:
+            return n_mps, 0
+        eids = ids[eligible]
+        levels = okf.kp_octave[rows[eligible]].astype(np.int32)
+        lo = np.searchsorted(mid_s, eids, "left")
+        cnt = np.searchsorted(mid_s, eids, "right") - lo
+        total = int(cnt.sum())
+        tix = np.repeat(lo, cnt) + (np.arange(total) - np.repeat(np.cumsum(cnt) - cnt, cnt))
+        prow = np.repeat(np.arange(len(eids)), cnt)
+        good = (kfid_s[tix] != okf.id) & (oct_s[tix] <= np.repeat(levels, cnt) + 1)
+        n_better = np.bincount(prow[good], minlength=len(eids))
+        return n_mps, int((n_better >= 3).sum())

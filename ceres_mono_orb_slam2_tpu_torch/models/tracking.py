@@ -1,0 +1,751 @@
+"""Tracking: the per-frame state machine (reference src/Tracking.cc), serial.
+
+Port of the serial path of `ceres_mono_orb_slam2_tpu/models/tracking.py`:
+monocular initialization, the motion model, reference-keyframe tracking,
+local-map tracking, the fused hot path (`models/fused_track`) against the
+device map pool, the keyframe decision and the trajectory log. Pipelined
+tracking and relocalization wait for later ports; without a relocalizer a
+lost frame stays lost, as in the JAX package with no vocabulary.
+"""
+
+from __future__ import annotations
+
+import enum
+import itertools
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ceres_mono_orb_slam2_tpu_torch.models.frame import Frame, compute_image_bounds
+from ceres_mono_orb_slam2_tpu_torch.models.map import Map
+from ceres_mono_orb_slam2_tpu_torch.ops import frustum, matcher, optim, twoview
+
+log = logging.getLogger(__name__)
+
+
+class State(enum.Enum):
+    NO_IMAGES_YET = 0
+    NOT_INITIALIZED = 1
+    OK = 2
+    LOST = 3
+
+
+class Tracking:
+    def __init__(self, config, map_: Map, extractor, local_mapper=None, device="cpu",
+                 generator: Optional[torch.Generator] = None):
+        self.config = config
+        self.map = map_
+        self.extractor = extractor
+        self.local_mapper = local_mapper
+        self.device = torch.device(device)
+        cam = config.camera
+        self.cam = cam
+        self.jK = self._dev(cam.K)
+        self.scale_factors = config.orb.scale_factors
+        self.inv_sigma2 = config.orb.inv_level_sigma2
+        self.j_scale = self._dev(self.scale_factors.astype(np.float32))
+        self.log_scale = float(np.log(config.orb.scale_factor))
+        self.n_levels = config.orb.n_levels
+        self.bounds: Optional[np.ndarray] = None  # set on the first frame
+        self.j_bounds = None
+
+        self.state = State.NO_IMAGES_YET
+        self.last_frame: Optional[Frame] = None
+        self.current: Optional[Frame] = None
+        self.velocity = None  # (R, t) relative motion or None
+        self.ref_kf_id: Optional[int] = None
+        self.init_ref: Optional[Frame] = None
+        self.last_kf_id = -1
+        self.last_reloc_frame_id = -1
+        self.matches_inliers = 0
+        self.max_frames = int(cam.fps)
+        self.min_frames = 0
+        # RANSAC noise of the two-view initializer; `uniform_noise(shape)` may
+        # be replaced to inject draws (tests feed the JAX tracker's)
+        self.generator = generator or torch.Generator(device=self.device).manual_seed(0)
+        self.uniform_noise = self._draw_uniform
+        # per-tracker frame sequence (the keyframe cadence gates count frames)
+        self._frame_seq = itertools.count()
+        # per-frame trajectory log: (ref_kf_id, R_rel, t_rel, timestamp, lost)
+        self.trajectory = []
+        self.n_resets = 0
+        self.frame_stats = []
+        self._stat = {}
+
+        self.fused_enabled = bool(getattr(config, "fused_tracking", True))
+        self._pool = None
+        self._fused_step = None
+        self.n_fused_frames = 0
+
+    # ------------------------------------------------------------------ utils
+
+    def _dev(self, a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype)).to(self.device)
+
+    def _draw_uniform(self, shape) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator, device=self.device)
+
+    def build_frame(self, image: np.ndarray, timestamp: float) -> Frame:
+        self._ensure_bounds(image)
+        feats = self.extractor.extract(image)
+        feats = type(feats)(*(a[0] for a in feats))
+        return Frame(feats, self.cam, timestamp, frame_id=next(self._frame_seq))
+
+    def _ensure_bounds(self, image):
+        if self.bounds is None:
+            self.bounds = compute_image_bounds(self.cam, image.shape[-2], image.shape[-1])
+            self.j_bounds = self._dev(self.bounds)
+            self.map.image_bounds = self.bounds
+
+    def grab_image(self, image: np.ndarray, timestamp: float):
+        """Reference GrabImageMonocular + Track (Tracking.cc:154-383).
+        Returns Tcw (4, 4) or None if not tracked."""
+        # track 8-bit grayscale like the reference; quantise float input
+        if image.dtype != np.uint8:
+            image = np.clip(image + 0.5, 0.0, 255.0).astype(np.uint8)
+        if self._can_fuse():
+            self._grab_fused(image, timestamp)
+        else:
+            self.current = self.build_frame(image, timestamp)
+            self._track()
+        f = self.current
+        self.last_frame = f
+        if f.pose_set:
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3] = f.Rcw
+            T[:3, 3] = f.tcw
+            return T
+        return None
+
+    # ------------------------------------------------------------- fused path
+
+    def _can_fuse(self) -> bool:
+        return (self.fused_enabled and self.state == State.OK and self.velocity is not None
+                and self.bounds is not None and self.last_frame is not None
+                and self.last_frame.pose_set and self.map.n_keyframes() >= 2)
+
+    def _ensure_pool(self):
+        if self._pool is None:
+            from ceres_mono_orb_slam2_tpu_torch.models.device_map import DeviceMapPool
+
+            cap = self.config.shapes.device_pool_cap or max(
+                4096, 4 * self.config.shapes.max_local_points)
+            self._pool = DeviceMapPool(self.map, cap=cap, device=self.device)
+        return self._pool
+
+    def _ensure_fused_step(self):
+        if self._fused_step is None:
+            from ceres_mono_orb_slam2_tpu_torch.models.fused_track import FusedStep
+
+            self._fused_step = FusedStep(self.config, device=self.device)
+        return self._fused_step
+
+    def _local_block(self, frame: Frame):
+        """Local-map candidate block of the fused step, from the previous
+        frame's associations: unique pool slots over the local keyframes
+        plus a 1-hop covisibility closure, highest-covisibility first."""
+        local_kfs = self._local_keyframes(frame)
+        if not local_kfs:
+            return [], np.zeros(0, np.int32)
+        expanded = list(local_kfs)
+        seen = set(local_kfs)
+        for kf_id in local_kfs:
+            kf = self.map.keyframes.get(kf_id)
+            if kf is None:
+                continue
+            for nb in kf.best_covisible(10) + list(kf.children) + (
+                    [kf.parent] if kf.parent is not None else []):
+                if nb not in seen:
+                    nkf = self.map.keyframes.get(nb)
+                    if nkf is not None and not nkf.bad:
+                        expanded.append(nb)
+                        seen.add(nb)
+        local_kfs = expanded[:96]
+        chunks = []
+        for kf_id in local_kfs:
+            kf = self.map.keyframes.get(kf_id)
+            if kf is not None and not kf.bad:
+                chunks.append(kf.mp_ids[kf.mp_ids >= 0])
+        if not chunks:
+            return local_kfs, np.zeros(0, np.int32)
+        # first-occurrence dedup preserving keyframe-priority order, so a cap
+        # drops the least covisible points
+        cat = np.concatenate(chunks)
+        _, first = np.unique(cat, return_index=True)
+        slots = self._pool.slots_for_ids(cat[np.sort(first)])
+        slots = slots[slots >= 0]
+        cap = self.config.shapes.max_local_points
+        if len(slots) > cap:
+            if not getattr(self, "_warned_local_cap", False):
+                self._warned_local_cap = True
+                log.warning("local map truncated: %d candidate points > cap %d "
+                            "(raise StaticShapes.max_local_points; warned once)",
+                            len(slots), cap)
+            slots = slots[:cap]
+        return local_kfs, slots
+
+    def _grab_fused(self, image: np.ndarray, timestamp: float):
+        """The per-frame hot path: host prediction and local-block selection,
+        extraction + pool gather + fused step on the device, ONE packed
+        control copy back, then host bookkeeping (TrackWithMotionModel +
+        TrackLocalMap, Tracking.cc:617-715). Falls back to reference-keyframe
+        tracking when the motion-model gates fail."""
+        from ceres_mono_orb_slam2_tpu_torch.models import fused_track
+
+        t0 = time.perf_counter()
+        lf = self.last_frame
+        self._check_replaced_in_last_frame()
+        self._update_last_frame()
+        Rv, tv = self.velocity
+        R_pred = (Rv @ lf.Rcw).astype(np.float32)
+        t_pred = (Rv @ lf.tcw + tv).astype(np.float32)
+        last_pos, last_ok = self._gather_frame_points(lf)
+        pool = self._ensure_pool()
+        pool.sync()
+        local_kfs, slots = self._local_block(lf)
+        L = self.config.shapes.max_local_points
+        slots_padded = np.full(L, pool.cap, np.int64)
+        slots_padded[: len(slots)] = slots
+        row_of = pool.row_map(slots)
+        ls = pool.slots_for_ids(lf.mp_ids)
+        last_local_row = np.where(ls >= 0, row_of[np.maximum(ls, 0)], -1).astype(np.int32)
+        # wider search right after a relocalization (Tracking.cc:808)
+        th_local = 5.0 if lf.id + 1 < self.last_reloc_frame_id + 2 else 1.0
+        # slot -> id snapshot of the local block rows
+        ids_snap = np.full(L, -1, np.int64)
+        ids_snap[: len(slots)] = pool.id_of[slots]
+
+        feats = self.extractor.extract(image)
+        f1 = type(feats)(*(a[0] for a in feats))
+        step = self._ensure_fused_step()
+        out = step(f1.xy, f1.octave, f1.angle, f1.desc, f1.valid,
+                   lf.j_octave, lf.j_angle, lf.j_desc,
+                   self._dev(last_pos), self._dev(last_ok), self._dev(last_local_row),
+                   self._dev(R_pred), self._dev(t_pred),
+                   *pool.gather(slots_padded), self.j_bounds, th_local)
+        host = fused_track.pack_control(out, f1.valid).cpu().numpy()
+        self._fused_consume(t0, lf, local_kfs, slots, L, timestamp, ids_snap, out, f1, host)
+
+    def _fused_consume(self, t0, lf, local_kfs, slots, L, timestamp, ids_snap, out, feats, host):
+        """Host phase of the fused path: association bookkeeping, stats,
+        fallbacks, keyframe decision."""
+        from ceres_mono_orb_slam2_tpu_torch.models import fused_track
+
+        (R2, t2, m1_idx, m1v, inl1, n1, ninl1, m2_idx, m2v, visible,
+         assoc, inl2, ninl2, h_valid) = fused_track.unpack_control(host, L)
+        f = Frame(feats, self.cam, timestamp, lazy=True, j_und=out.und,
+                  frame_id=next(self._frame_seq))
+        self.current = f
+        self._stat = {"frame_id": f.id, "timestamp": f.timestamp, "n_kp": int(h_valid.sum()),
+                      "method": "fused", "local_kfs": len(local_kfs),
+                      "local_points": int(len(slots)), "n1": n1,
+                      "n_vis": int(visible[: len(slots)].sum()), "n_assoc": int(assoc.sum())}
+        if n1 < 20 or ninl1 < 10:
+            # motion-model failure: TrackReferenceKeyFrame fallback
+            self._stat["method"] = "refkf"
+            ok = self._track_reference_keyframe()
+            if not ok:
+                self._stat["method"] = "reloc"
+                ok = self._relocalization()
+            self._stat["inliers_frame"] = self.matches_inliers if ok else 0
+            if ok:
+                ok = self._track_local_map()
+            self._stat["inliers_local"] = self.matches_inliers
+            self._finish_track(ok, t0)
+            return
+
+        self.n_fused_frames += 1
+        f.set_pose(R2, t2)
+        f.mp_ids[:] = -1
+        s_idx = np.nonzero(m1v)[0]
+        j_idx = m1_idx[s_idx]
+        keep = inl1[j_idx]
+        f.mp_ids[j_idx[keep]] = lf.mp_ids[s_idx[keep]]
+        stage1_ids = set(int(m) for m in f.mp_ids[f.mp_ids >= 0])
+        rows2 = np.nonzero(m2v)[0]
+        if len(rows2):
+            ids2 = np.asarray(ids_snap[rows2], np.int64)
+            keep2 = ids2 >= 0
+            f.mp_ids[m2_idx[rows2[keep2]]] = ids2[keep2]
+        self._dedup_mp_ids(f.mp_ids)
+        f.outlier = assoc & ~inl2
+
+        # visibility / found statistics (SearchLocalPoints + Tracking.cc:694-706)
+        mp_table = self.map.map_points
+        for mid in stage1_ids:
+            mp = mp_table.get(mid)
+            if mp is not None and not mp.bad:
+                mp.n_visible += 1
+                mp.last_frame_seen = f.id
+        for row in np.nonzero(visible[: len(slots)])[0]:
+            mid = int(ids_snap[row])
+            if mid < 0 or mid in stage1_ids:
+                continue
+            mp = mp_table.get(mid)
+            if mp is not None and not mp.bad:
+                mp.n_visible += 1
+                mp.last_frame_seen = f.id
+        for i in np.nonzero((f.mp_ids >= 0) & ~f.outlier)[0]:
+            mp = mp_table.get(int(f.mp_ids[i]))
+            if mp is not None and not mp.bad:
+                mp.n_found += 1
+
+        # reference keyframe = max shared count over the MOTION-MODEL stage's
+        # bindings (UpdateLocalKeyFrames runs before SearchLocalPoints)
+        counts = {}
+        for mid in stage1_ids:
+            mp = mp_table.get(int(mid))
+            if mp is None or mp.bad:
+                continue
+            for kf_id in mp.observations:
+                counts[kf_id] = counts.get(kf_id, 0) + 1
+        if counts:
+            best = max(counts, key=counts.get)
+            kf = self.map.keyframes.get(best)
+            if kf is not None and not kf.bad:
+                self.ref_kf_id = best
+
+        self.matches_inliers = int(ninl2)
+        self._stat["inliers_frame"] = ninl1
+        self._stat["inliers_local"] = self.matches_inliers
+        if f.id < self.last_reloc_frame_id + self.max_frames and self.matches_inliers < 50:
+            ok = False
+        else:
+            ok = self.matches_inliers >= 30
+        self._finish_track(ok, t0)
+
+    # ------------------------------------------------------------------ track
+
+    def _track(self):
+        f = self.current
+        t0 = time.perf_counter()
+        self._stat = {"frame_id": f.id, "timestamp": f.timestamp,
+                      "n_kp": int(f.kp_valid.sum()), "method": ""}
+        if self.state == State.NO_IMAGES_YET:
+            self.state = State.NOT_INITIALIZED
+        if self.state == State.NOT_INITIALIZED:
+            self._monocular_initialization()
+            return
+        ok = False
+        if self.state == State.OK:
+            self._check_replaced_in_last_frame()
+            if self.velocity is not None:
+                ok = self._track_with_motion_model()
+                self._stat["method"] = "motion"
+            if not ok:
+                ok = self._track_reference_keyframe()
+                self._stat["method"] = "refkf"
+            if not ok:
+                ok = self._relocalization()
+                self._stat["method"] = "reloc"
+        else:  # LOST
+            ok = self._relocalization()
+            self._stat["method"] = "reloc"
+        self._stat["inliers_frame"] = self.matches_inliers if ok else 0
+        if ok:
+            ok = self._track_local_map()
+        self._stat["inliers_local"] = self.matches_inliers
+        self._finish_track(ok, t0)
+
+    def _finish_track(self, ok: bool, t0: float):
+        """Shared tail of Track() (Tracking.cc:305-383): stats, state,
+        velocity, outlier cleanup, keyframe decision, trajectory log, and
+        the reset when tracking is lost right after initialization."""
+        f = self.current
+        self._stat["ok"] = bool(ok)
+        self._stat["track_ms"] = (time.perf_counter() - t0) * 1e3
+        self._stat["n_kfs"] = self.map.n_keyframes()
+        self._stat["n_mps"] = len(self.map.map_points)
+        self.frame_stats.append(self._stat)
+        self.state = State.OK if ok else State.LOST
+        if ok:
+            if self.last_frame is not None and self.last_frame.pose_set:
+                Rl, tl = self.last_frame.Rcw, self.last_frame.tcw
+                Rv = f.Rcw @ Rl.T
+                self.velocity = (Rv, f.tcw - Rv @ tl)
+            f.mp_ids[f.outlier] = -1
+            f.outlier[:] = False
+            if self._need_new_keyframe():
+                self._create_new_keyframe()
+            self._log_trajectory(False)
+        else:
+            self.velocity = None
+            if self.map.n_keyframes() <= 5:
+                log.info("Track lost soon after initialisation, resetting")
+                self.reset()
+                return
+            self._log_trajectory(True)
+
+    def _log_trajectory(self, lost: bool):
+        f = self.current
+        if self.ref_kf_id is None:
+            return
+        kf = self.map.keyframes.get(self.ref_kf_id)
+        if kf is None or not f.pose_set:
+            if self.trajectory:
+                prev = self.trajectory[-1]
+                self.trajectory.append((prev[0], prev[1], prev[2], f.timestamp, True))
+            return
+        R_rel = f.Rcw @ kf.Rcw.T
+        self.trajectory.append((kf.id, R_rel, f.tcw - R_rel @ kf.tcw, f.timestamp, lost))
+
+    # ------------------------------------------------- monocular initialization
+
+    def _monocular_initialization(self):
+        f = self.current
+        n_valid = int(f.kp_valid.sum())
+        if self.init_ref is None or self.init_ref.kp_valid.sum() <= 100:
+            if n_valid > 100:
+                self.init_ref = f
+            return
+        if n_valid <= 100:
+            self.init_ref = None
+            return
+        ref = self.init_ref
+        idx, _, valid = matcher.search_for_initialization(
+            ref.j_und, ref.j_angle, ref.j_bits, ref.j_valid, ref.j_octave,
+            f.j_und, f.j_angle, f.j_bits, f.j_valid, f.j_octave, window=100.0)
+        if int(valid.sum()) < 100:
+            self.init_ref = None
+            return
+        noise = self.uniform_noise((self.config.shapes.ransac_hypotheses, ref.n_kp))
+        res = twoview.initialize_two_view(torch.as_tensor(noise, device=self.device),
+                                          self.jK, ref.j_und, f.j_und[idx], valid)
+        if not bool(res.success):
+            return
+        self._create_initial_map(ref, f, idx.cpu().numpy(), res.triangulated.cpu().numpy(),
+                                 res.R21.cpu().numpy(), res.t21.cpu().numpy(),
+                                 res.points3d.cpu().numpy())
+
+    def _create_initial_map(self, ref: Frame, cur: Frame, idx, tri, R21, t21, pts3d):
+        """Reference CreateInitialMapMonocular (Tracking.cc:455-551)."""
+        from ceres_mono_orb_slam2_tpu_torch.models.optimization import global_bundle_adjustment
+
+        m = self.map
+        ref.set_pose(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        cur.set_pose(R21, t21)
+        kf1 = m.new_keyframe(ref)
+        kf2 = m.new_keyframe(cur)
+        m.keyframe_origins.append(kf1.id)
+        for i in np.nonzero(tri)[0]:
+            j = int(idx[i])
+            mp = m.new_map_point(pts3d[i], cur.desc[j], kf2.id)
+            m.add_observation(mp, kf1, int(i))
+            m.add_observation(mp, kf2, j)
+            m.compute_distinctive_descriptor(mp)
+            m.update_normal_and_depth(mp, self.scale_factors)
+            cur.mp_ids[j] = mp.id
+        m.update_connections(kf1)
+        m.update_connections(kf2)
+        log.info("New Map created with %d points", m.n_map_points())
+
+        # full BA on the 2-KF map (GlobalBundleAdjustemnt(map, 20))
+        global_bundle_adjustment(m, self.config, n_iters=20, device=self.device)
+
+        # depth normalisation: median scene depth -> 1
+        kf1_ = m.keyframes[kf1.id]
+        depths = [(kf1_.Rcw @ mp.pos + kf1_.tcw)[2] for mp in
+                  (m.get_mp(int(mid)) for mid in kf1_.mp_ids if mid >= 0) if mp is not None]
+        median_depth = float(np.median(depths)) if depths else -1.0
+        if median_depth < 0 or kf2.tracked_map_points(1, m) < 80:
+            log.info("Wrong initialization, resetting")
+            self.reset()
+            return
+        inv = 1.0 / median_depth
+        kf2_ = m.keyframes[kf2.id]
+        kf2_.tcw = (kf2_.tcw * inv).astype(np.float32)
+        for mp in m.all_map_points():
+            mp.pos = (mp.pos * inv).astype(np.float32)
+            m.update_normal_and_depth(mp, self.scale_factors)
+        cur.set_pose(kf2_.Rcw, kf2_.tcw)
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(kf1.id)
+            self.local_mapper.insert_keyframe(kf2.id)
+        self.ref_kf_id = kf2.id
+        self.last_kf_id = kf2.id
+        self.init_ref = None
+        self.state = State.OK
+
+    # ------------------------------------------------------------ frame tracking
+
+    @staticmethod
+    def _dedup_mp_ids(mp_ids: np.ndarray):
+        """Keep only the first slot of a duplicated map-point id."""
+        seen = set()
+        for i in np.nonzero(mp_ids >= 0)[0]:
+            mid = int(mp_ids[i])
+            if mid in seen:
+                mp_ids[i] = -1
+            else:
+                seen.add(mid)
+
+    def _check_replaced_in_last_frame(self):
+        lf = self.last_frame
+        for i in np.nonzero(lf.mp_ids >= 0)[0]:
+            lf.mp_ids[i] = self.map.resolve(int(lf.mp_ids[i]))
+        self._dedup_mp_ids(lf.mp_ids)
+
+    def _gather_frame_points(self, frame: Frame):
+        """Positions of the frame's live associated map points, aligned to
+        keypoint slots (dead bindings are dropped): (pos (N,3), ok (N,))."""
+        n = frame.n_kp
+        pos = np.zeros((n, 3), np.float32)
+        m = self.map
+        bound = frame.mp_ids >= 0
+        if len(m.mp_alive):
+            safe = np.where(bound, frame.mp_ids, 0)
+            ok = bound & (safe < len(m.mp_alive)) & m.mp_alive[np.minimum(safe, len(m.mp_alive) - 1)]
+        else:
+            ok = np.zeros(n, bool)
+        frame.mp_ids[bound & ~ok] = -1
+        pos[ok] = m.mp_pos[frame.mp_ids[ok]]
+        return pos, ok
+
+    def _pose_optimize(self, frame: Frame) -> int:
+        pos, ok = self._gather_frame_points(frame)
+        if ok.sum() < 3:
+            return 0
+        w = self.inv_sigma2[frame.kp_octave].astype(np.float32)
+        res = optim.pose_optimization(self.jK, self._dev(frame.Rcw), self._dev(frame.tcw),
+                                      self._dev(pos), frame.j_und, self._dev(w), self._dev(ok))
+        frame.set_pose(res.R.cpu().numpy(), res.t.cpu().numpy())
+        inl = res.inliers.cpu().numpy()
+        frame.outlier = ok & ~inl
+        return int(inl.sum())
+
+    def _update_last_frame(self):
+        """Reference UpdateLastFrame (Tracking.cc:553-564): re-anchor the last
+        frame on its reference keyframe, which local BA may have moved."""
+        if not self.trajectory:
+            return
+        kf_id, R_rel, t_rel, _, _ = self.trajectory[-1]
+        kf = self.map.keyframes.get(kf_id)
+        if kf is None or kf.bad:
+            return
+        self.last_frame.set_pose(R_rel @ kf.Rcw, R_rel @ kf.tcw + t_rel)
+
+    def _track_with_motion_model(self) -> bool:
+        """Reference TrackWithMotionModel (Tracking.cc:617-671)."""
+        f, lf = self.current, self.last_frame
+        self._update_last_frame()
+        Rv, tv = self.velocity
+        f.set_pose(Rv @ lf.Rcw, Rv @ lf.tcw + tv)
+        pos, ok = self._gather_frame_points(lf)
+        if ok.sum() < 10:
+            return False
+        K = self.jK
+        Xc = self._dev(pos) @ self._dev(f.Rcw).T + self._dev(f.tcw)
+        z = Xc[:, 2].clamp_min(1e-6)
+        pr_uv = torch.stack([K[0, 0] * Xc[:, 0] / z + K[0, 2], K[1, 1] * Xc[:, 1] / z + K[1, 2]], -1)
+        pr_valid = self._dev(ok) & (Xc[:, 2] > 0)
+        n = 0
+        for th in (15.0, 30.0):  # retry wider (Tracking.cc:662-668)
+            idx, _, valid = matcher.search_by_projection_frame(
+                f.j_und, f.j_octave, f.j_angle, f.j_bits, f.j_valid,
+                pr_uv, lf.j_octave, lf.j_angle, lf.j_bits, pr_valid, self.j_scale, th=th)
+            idx, vi = idx.cpu().numpy(), valid.cpu().numpy()
+            n = int(vi.sum())
+            if n >= 20:
+                break
+        if n < 20:
+            return False
+        f.mp_ids[:] = -1
+        f.mp_ids[idx[vi]] = lf.mp_ids[np.nonzero(vi)[0]]
+        self._dedup_mp_ids(f.mp_ids)
+        self.matches_inliers = self._pose_optimize(f)
+        f.mp_ids[f.outlier] = -1
+        f.outlier[:] = False
+        return self.matches_inliers >= 10
+
+    def _track_reference_keyframe(self) -> bool:
+        """Reference TrackReferenceKeyFrame (Tracking.cc:566-607)."""
+        f = self.current
+        kf = self.map.keyframes.get(self.ref_kf_id)
+        if kf is None or kf.bad:
+            return False
+        kf_has_mp = (kf.mp_ids >= 0) & kf.kp_valid
+        idx, _, valid = matcher.search_by_descriptor(
+            f.j_angle, f.j_bits, f.j_valid, self._dev(kf.kp_angle),
+            matcher.unpack_u8(kf.desc, self.device), self._dev(kf_has_mp), ratio=0.7)
+        idx, vi = idx.cpu().numpy(), valid.cpu().numpy()
+        if int(vi.sum()) < 15:
+            return False
+        f.mp_ids[:] = -1
+        f.mp_ids[vi] = kf.mp_ids[idx[vi]]
+        if self.last_frame is not None and self.last_frame.pose_set:
+            f.set_pose(self.last_frame.Rcw, self.last_frame.tcw)
+        self.matches_inliers = self._pose_optimize(f)
+        f.mp_ids[f.outlier] = -1
+        f.outlier[:] = False
+        return self.matches_inliers >= 10
+
+    # -------------------------------------------------------------- local map
+
+    def _local_keyframes(self, frame: Frame):
+        """UpdateLocalKeyFrames (Tracking.cc:838-977): keyframes observing
+        the frame's map points by shared count, expanded with one neighbour /
+        child / parent per source keyframe, capped at 80."""
+        counts = {}
+        for mid in frame.mp_ids:
+            if mid < 0:
+                continue
+            mp = self.map.get_mp(int(mid))
+            if mp is None:
+                continue
+            for kf_id in mp.observations:
+                counts[kf_id] = counts.get(kf_id, 0) + 1
+        if not counts:
+            return []
+        local_kfs = []
+        seen = set()
+        for kf_id in sorted(counts, key=counts.get, reverse=True):
+            kf = self.map.keyframes.get(kf_id)
+            if kf is not None and not kf.bad:
+                local_kfs.append(kf_id)
+                seen.add(kf_id)
+        for kf_id in list(local_kfs):
+            if len(local_kfs) > 80:
+                break
+            kf = self.map.keyframes.get(kf_id)
+            if kf is None:
+                continue
+            for nb in kf.best_covisible(10) + list(kf.children) + (
+                    [kf.parent] if kf.parent is not None else []):
+                if nb not in seen:
+                    nkf = self.map.keyframes.get(nb)
+                    if nkf is not None and not nkf.bad:
+                        local_kfs.append(nb)
+                        seen.add(nb)
+                        break
+        return local_kfs
+
+    def _update_local_map(self):
+        local_kfs = self._local_keyframes(self.current)
+        if not local_kfs:
+            return [], []
+        self.ref_kf_id = local_kfs[0]
+        mp_ids = []
+        mp_seen = set()
+        for kf_id in local_kfs:
+            for mid in self.map.keyframes[kf_id].mp_ids:
+                if mid >= 0 and mid not in mp_seen and self.map.get_mp(int(mid)) is not None:
+                    mp_ids.append(int(mid))
+                    mp_seen.add(mid)
+        return local_kfs, mp_ids
+
+    def _track_local_map(self) -> bool:
+        """Reference TrackLocalMap (Tracking.cc:673-715) + SearchLocalPoints."""
+        f = self.current
+        local_kfs, mp_ids = self._update_local_map()
+        if not mp_ids:
+            return False
+        in_frame = set(int(m) for m in f.mp_ids if m >= 0)
+        cand = [m for m in mp_ids if m not in in_frame]
+        for mid in in_frame:
+            mp = self.map.get_mp(mid)
+            if mp is not None:
+                mp.n_visible += 1
+                mp.last_frame_seen = f.id
+        cap = self.config.shapes.max_local_points
+        if len(cand) > cap and not getattr(self, "_warned_local_cap", False):
+            self._warned_local_cap = True
+            log.warning("local map truncated: %d candidate points > cap %d "
+                        "(raise StaticShapes.max_local_points; warned once)", len(cand), cap)
+        cand = cand[:cap]
+        self._stat["local_kfs"] = len(local_kfs)
+        self._stat["local_points"] = len(cand)
+        if cand:
+            ga = np.asarray(cand, np.int64)
+            m = self.map
+            uv, level, viewcos, visible = frustum.frustum_and_scale(
+                self._dev(f.Rcw), self._dev(f.tcw), self.jK, self.j_bounds,
+                self._dev(m.mp_pos[ga]), self._dev(m.mp_normal[ga]), self._dev(m.mp_mind[ga]),
+                self._dev(m.mp_maxd[ga]), torch.ones(len(cand), dtype=torch.bool, device=self.device),
+                self.log_scale, self.n_levels)
+            for i in np.nonzero(visible.cpu().numpy())[0]:
+                mp = self.map.map_points[cand[i]]
+                mp.n_visible += 1
+                mp.last_frame_seen = f.id
+            th = 5.0 if self.current.id < self.last_reloc_frame_id + 2 else 1.0
+            kp_free = self._dev(f.mp_ids < 0) & f.j_valid
+            mp_bits = matcher.unpack_bits_pm1(self._dev(m.mp_desc[ga]))
+            idx, _, valid = matcher.search_by_projection_points(
+                f.j_und, f.j_octave, f.j_bits, f.j_valid, kp_free,
+                uv, level, viewcos, mp_bits, visible, self.j_scale, th=th)
+            ii, vi = idx.cpu().numpy(), valid.cpu().numpy()
+            for q in np.nonzero(vi)[0]:
+                f.mp_ids[ii[q]] = cand[q]
+
+        self.matches_inliers = self._pose_optimize(f)
+        inl = ~f.outlier
+        for i in np.nonzero(f.mp_ids >= 0)[0]:
+            mp = self.map.get_mp(int(f.mp_ids[i]))
+            if mp is not None and inl[i]:
+                mp.n_found += 1
+        f.mp_ids[f.outlier] = -1
+        f.outlier[:] = False
+        if self.current.id < self.last_reloc_frame_id + self.max_frames and self.matches_inliers < 50:
+            return False
+        return self.matches_inliers >= 30
+
+    # ------------------------------------------------------------ keyframe mgmt
+
+    def _need_new_keyframe(self) -> bool:
+        """Reference NeedNewKeyFrame (Tracking.cc:717-775), mono branch."""
+        m = self.map
+        n_kfs = m.n_keyframes()
+        if self.current.id < self.last_reloc_frame_id + self.max_frames and n_kfs > self.max_frames:
+            return False
+        min_obs = 3 if n_kfs > 2 else 2
+        ref_kf = m.keyframes.get(self.ref_kf_id)
+        ref_matches = ref_kf.tracked_map_points(min_obs, m) if ref_kf else 0
+        mapper_idle = self.local_mapper.accepting() if self.local_mapper else True
+        c1a = self.current.id >= self.last_kf_frame_id() + self.max_frames
+        c1b = self.current.id >= self.last_kf_frame_id() + self.min_frames and mapper_idle
+        c2 = self.matches_inliers < ref_matches * 0.9 and self.matches_inliers > 15
+        if (c1a or c1b) and c2:
+            if mapper_idle:
+                return True
+            if self.local_mapper is not None:
+                self.local_mapper.interrupt_ba()
+        return False
+
+    def last_kf_frame_id(self) -> int:
+        kf = self.map.keyframes.get(self.last_kf_id)
+        return kf.frame_id if kf is not None else -(10 ** 9)
+
+    def _create_new_keyframe(self):
+        f = self.current
+        kf = self.map.new_keyframe(f)
+        for i in np.nonzero(f.mp_ids >= 0)[0]:
+            mp = self.map.get_mp(int(f.mp_ids[i]))
+            if mp is not None:
+                self.map.add_observation(mp, kf, int(i))
+        self.ref_kf_id = kf.id
+        self.last_kf_id = kf.id
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(kf.id)
+
+    def _relocalization(self) -> bool:
+        """Relocalization needs the BoW keyframe database, which is not
+        ported yet: with no relocalizer a lost frame stays lost."""
+        return False
+
+    # ------------------------------------------------------------------ reset
+
+    def reset(self):
+        """Reference Tracking::Reset (Tracking.cc:1139-1179)."""
+        self.map.clear()
+        if self.local_mapper is not None:
+            self.local_mapper.reset()
+        self.state = State.NOT_INITIALIZED
+        self.last_frame = None
+        self.velocity = None
+        self.ref_kf_id = None
+        self.init_ref = None
+        self.last_kf_id = -1
+        self.trajectory.clear()
+        self.n_resets += 1

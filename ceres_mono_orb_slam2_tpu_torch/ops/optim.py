@@ -1,0 +1,296 @@
+"""Levenberg-Marquardt optimizers, the Ceres Solver replacement.
+
+Port of `ceres_mono_orb_slam2_tpu/ops/optim.py`: motion-only pose
+optimization and bundle adjustment with a dense point-block Schur complement.
+Residuals and analytic Jacobians are batched over observations; the normal
+equations assemble with `index_add_` (segment sums), not the one-hot matmuls
+the TPU needed, whose (O, M) operand is 1 GB at the default BA budgets.
+
+Conventions: poses are world->camera (Tcw) as (R, t); updates are
+left-multiplicative se3 increments T <- exp(dx) * T.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ceres_mono_orb_slam2_tpu_torch.ops import lie
+
+CHI2_MONO = 5.991  # 2-dof 95% chi-square gate
+
+
+def huber_weight(s, delta):
+    """IRLS weight rho'(s) for Ceres HuberLoss(delta); s = squared norm."""
+    return torch.where(s <= delta * delta, torch.ones_like(s), delta / torch.sqrt(s.clamp_min(1e-12)))
+
+
+def huber_cost(s, delta):
+    d2 = delta * delta
+    return torch.where(s <= d2, s, 2.0 * delta * torch.sqrt(s.clamp_min(1e-12)) - d2)
+
+
+def _safe_inv_z(z):
+    return 1.0 / torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+
+
+def _proj_jacobian(K, Xc):
+    """d(pixel)/d(camera point): (..., 2, 3)."""
+    fx, fy = K[0, 0], K[1, 1]
+    x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
+    zi = _safe_inv_z(z)
+    zi2 = zi * zi
+    zero = torch.zeros_like(x)
+    row0 = torch.stack([fx * zi, zero, -fx * x * zi2], dim=-1)
+    row1 = torch.stack([zero, fy * zi, -fy * y * zi2], dim=-1)
+    return torch.stack([row0, row1], dim=-2)
+
+
+def _inv3x3(A):
+    """Closed-form batched 3x3 inverse (adjugate / determinant)."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A00 = e * i - f * h
+    A01 = c * h - b * i
+    A02 = b * f - c * e
+    A10 = f * g - d * i
+    A11 = a * i - c * g
+    A12 = c * d - a * f
+    A20 = d * h - e * g
+    A21 = b * g - a * h
+    A22 = a * e - b * d
+    det = a * A00 + b * A10 + c * A20
+    det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
+    adj = torch.stack([torch.stack([A00, A01, A02], -1),
+                       torch.stack([A10, A11, A12], -1),
+                       torch.stack([A20, A21, A22], -1)], -2)
+    return adj / det[..., None, None]
+
+
+def _solve6_spd(H, g):
+    """Solve H x = g for SPD 6x6 via a 2x2-block Schur on 3x3 blocks."""
+    A = H[..., :3, :3]
+    B = H[..., :3, 3:]
+    C = H[..., 3:, 3:]
+    g1 = g[..., :3]
+    g2 = g[..., 3:]
+    Bt = B.transpose(-1, -2)
+    Ainv = _inv3x3(A)
+    Sinv = _inv3x3(C - Bt @ Ainv @ B)
+    y1 = (Ainv @ g1[..., None])[..., 0]
+    x2 = (Sinv @ (g2 - (Bt @ y1[..., None])[..., 0])[..., None])[..., 0]
+    x1 = (Ainv @ (g1 - (B @ x2[..., None])[..., 0])[..., None])[..., 0]
+    return torch.cat([x1, x2], dim=-1)
+
+
+def _project(K, Xc):
+    zi = _safe_inv_z(Xc[..., 2])
+    u = K[0, 0] * Xc[..., 0] * zi + K[0, 2]
+    v = K[1, 1] * Xc[..., 1] * zi + K[1, 2]
+    return torch.stack([u, v], dim=-1)
+
+
+def _pose_jacobian(Jp, Xc):
+    """d(residual)/d(left se3 increment) with residual = obs - proj:
+    -(Jp @ [I | -hat(Xc)])."""
+    return -torch.cat([Jp, -Jp @ lie.hat(Xc)], dim=-1)
+
+
+class PoseOptResult(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    inliers: torch.Tensor  # (N,) bool: valid obs passing the chi2 gate
+    n_inliers: torch.Tensor  # () int32
+    cost: torch.Tensor
+
+
+def pose_optimization(K, R0, t0, pts3d, uv, inv_sigma2, valid, max_iters: int = 25,
+                      chi2_th: float = CHI2_MONO, rounds: int = 4) -> PoseOptResult:
+    """Motion-only BA of one frame (PoseOptimization): minimise
+    sum huber(w * ||uv - proj(R X + t)||^2) over the 6-dof pose in `rounds`
+    LM blocks, re-classifying inliers at chi2_th between blocks (the
+    ORB-SLAM2 4-round trimming).
+
+    Each block is a fixed `max_iters`-iteration loop with a `done` mask that
+    freezes the state once the JAX package's while_loop would have exited
+    (an accepted step that barely moved the cost, or a rejection with damping
+    past 1): the same results with no host synchronisation per iteration.
+    """
+    delta = math.sqrt(chi2_th)
+    dev, dt = R0.device, R0.dtype
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+
+    def residuals(R, t):
+        Xc = pts3d @ R.T + t
+        return uv - _project(K, Xc), Xc, Xc[..., 2] <= 0.05
+
+    def cost_fn(R, t, active):
+        r, _, behind = residuals(R, t)
+        s = inv_sigma2 * (r * r).sum(-1)
+        s = torch.where(behind, torch.full_like(s, 1e6), s)
+        return torch.where(active, huber_cost(s, delta), torch.zeros_like(s)).sum()
+
+    # project the initial rotation onto SO(3): the motion-model prediction
+    # composes previous solutions and accumulates determinant drift
+    R, t = lie.so3_project(R0), t0
+    active = valid
+    cost = None
+    for _ in range(max(rounds, 1)):
+        cost = cost_fn(R, t, active)
+        lam = torch.tensor(1e-4, dtype=dt, device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        for _ in range(max_iters):
+            r, Xc, behind = residuals(R, t)
+            s = inv_sigma2 * (r * r).sum(-1)
+            w = inv_sigma2 * huber_weight(s, delta)
+            w = torch.where(active & ~behind, w, torch.zeros_like(w))
+            Jr = _pose_jacobian(_proj_jacobian(K, Xc), Xc)  # (N, 2, 6)
+            wJ = w[:, None, None] * Jr
+            H = torch.einsum("nik,nil->kl", wJ, Jr)
+            g = -torch.einsum("nik,ni->k", wJ, r)
+            Hd = H + lam * torch.diag_embed(torch.diagonal(H)) + 1e-8 * eye6
+            dR, dtv = lie.se3_exp(_solve6_spd(Hd, g))
+            R_new = dR @ R
+            t_new = dR @ t + dtv
+            new_cost = cost_fn(R_new, t_new, active)
+            accept = new_cost < cost
+            stop = (accept & (cost - new_cost <= 1e-6 * cost)) | (~accept & (lam >= 1.0))
+            take = accept & ~done
+            R = torch.where(take, R_new, R)
+            t = torch.where(take, t_new, t)
+            cost = torch.where(take, new_cost, cost)
+            lam = torch.where(done, lam, torch.where(accept, (lam * 0.25).clamp_min(1e-8),
+                                                     (lam * 4.0).clamp_max(1e5)))
+            done = done | stop
+        R = lie.so3_project(R)
+        # re-classify: outliers leave, returners re-enter
+        r, Xc, behind = residuals(R, t)
+        chi2 = inv_sigma2 * (r * r).sum(-1)
+        active = valid & ~behind & (chi2 <= chi2_th)
+    return PoseOptResult(R=R, t=t, inliers=active,
+                         n_inliers=active.to(torch.int32).sum(), cost=cost)
+
+
+class BAResult(NamedTuple):
+    R: torch.Tensor  # (P, 3, 3)
+    t: torch.Tensor  # (P, 3)
+    points: torch.Tensor  # (M, 3)
+    inlier_obs: torch.Tensor  # (O,) bool
+    cost: torch.Tensor
+
+
+def bundle_adjustment(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigma2,
+                      obs_valid, fixed_pose, point_valid, iters_huber: int = 5,
+                      iters_trimmed: int = 10, chi2_th: float = CHI2_MONO) -> BAResult:
+    """Bundle adjustment with dense point-block Schur elimination
+    (LocalBundleAdjustment's two passes): pass 1 Huber-robust, outliers
+    (chi2 > 5.991) dropped, pass 2 trimmed quadratic. The pose-point cross
+    blocks U (M, P, 6, 3) are accumulated with one index_put, and the reduced
+    6P x 6P system is solved by Cholesky.
+
+    iters_huber=0 with iters_trimmed>0 over all-valid observations is a plain
+    global BA. Each pass exits at the Ceres function-tolerance convergence
+    test (relative cost decrease <= 1e-6 on an accepted step).
+    """
+    P = R.shape[0]
+    M = points.shape[0]
+    dev, dt = R.device, R.dtype
+    delta = math.sqrt(chi2_th)
+    free6 = (~fixed_pose).repeat_interleave(6)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    op = obs_pose.long()
+    oj = obs_point.long()
+
+    def chi2_of(Rp, tp, pts):
+        Xc = (Rp[op] @ pts[oj][..., None])[..., 0] + tp[op]
+        r = obs_uv - _project(K, Xc)
+        s = obs_inv_sigma2 * (r * r).sum(-1)
+        return torch.where(Xc[..., 2] <= 1e-6, torch.full_like(s, 1e6), s), r, Xc
+
+    def total_cost(Rp, tp, pts, mask, robust):
+        s, _, _ = chi2_of(Rp, tp, pts)
+        c = huber_cost(s, delta) if robust else s
+        return torch.where(mask, c, torch.zeros_like(c)).sum()
+
+    def lm_iteration(Rp, tp, pts, lam, cost, mask, robust):
+        s, r, Xc = chi2_of(Rp, tp, pts)
+        w = obs_inv_sigma2 * (huber_weight(s, delta) if robust else 1.0)
+        w = torch.where(mask & (Xc[..., 2] > 1e-6), w, torch.zeros_like(w))
+        Jp = _proj_jacobian(K, Xc)  # (O, 2, 3)
+        A = _pose_jacobian(Jp, Xc)  # (O, 2, 6)
+        B = -(Jp @ Rp[op])  # (O, 2, 3): dr/dX = -Jp R
+        wA = w[:, None, None] * A
+        wB = w[:, None, None] * B
+
+        Hpp = torch.zeros((P, 6, 6), dtype=dt, device=dev).index_add_(
+            0, op, torch.einsum("oik,oil->okl", wA, A))
+        bp = torch.zeros((P, 6), dtype=dt, device=dev).index_add_(
+            0, op, -torch.einsum("oik,oi->ok", wA, r))
+        Hll = torch.zeros((M, 3, 3), dtype=dt, device=dev).index_add_(
+            0, oj, torch.einsum("oik,oil->okl", wB, B))
+        bl = torch.zeros((M, 3), dtype=dt, device=dev).index_add_(
+            0, oj, -torch.einsum("oik,oi->ok", wB, r))
+        U = torch.zeros((M, P, 6, 3), dtype=dt, device=dev).index_put_(
+            (oj, op), torch.einsum("oik,oil->okl", wA, B), accumulate=True)
+        U3 = U.reshape(M, P * 6, 3)
+
+        Hll_d = Hll + lam * (Hll * eye3) + 1e-6 * eye3
+        Hpp_d = Hpp + lam * (Hpp * eye6) + 1e-6 * eye6
+        Hll_inv = torch.where(point_valid[:, None, None], _inv3x3(Hll_d),
+                              torch.zeros_like(Hll_d))
+        T3 = torch.einsum("mak,mkl->mal", U3, Hll_inv)  # U Hll^-1
+        # Schur complement S = blockdiag(Hpp_d) - sum_m U_m Hll_m^-1 U_m^T
+        S = -torch.einsum("mak,mbk->ab", T3, U3)
+        S = S + torch.block_diag(*Hpp_d)
+        rhs = bp.reshape(P * 6) - torch.einsum("mak,mk->a", T3, bl)
+        # gauge: zero rows/cols of fixed poses, identity diagonal
+        S = torch.where(free6[:, None] & free6[None, :], S, torch.zeros_like(S))
+        S = S + torch.diag(torch.where(free6, 0.0, 1.0).to(dt))
+        rhs = torch.where(free6, rhs, torch.zeros_like(rhs))
+        L, info = torch.linalg.cholesky_ex(S)
+        dp = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+        # a failed factorisation rejects the step (NaN cost), as in XLA
+        dp = torch.where(info == 0, dp, torch.full_like(dp, float("nan"))).reshape(P, 6)
+
+        dl = torch.einsum("mkl,ml->mk", Hll_inv,
+                          bl - torch.einsum("mak,a->mk", U3, dp.reshape(P * 6)))
+        dl = torch.where(point_valid[:, None], dl, torch.zeros_like(dl))
+        dRp, dtp = lie.se3_exp(dp)
+        R_new = dRp @ Rp
+        t_new = (dRp @ tp[..., None])[..., 0] + dtp
+        pts_new = pts + dl
+        new_cost = total_cost(R_new, t_new, pts_new, mask, robust)
+        accept = new_cost < cost
+        converged = accept & (cost - new_cost <= 1e-6 * cost)
+        Rp = torch.where(accept, R_new, Rp)
+        tp = torch.where(accept, t_new, tp)
+        pts = torch.where(accept, pts_new, pts)
+        lam = torch.where(accept, (lam * 0.33).clamp_min(1e-7), (lam * 5.0).clamp_max(1e6))
+        cost = torch.where(accept, new_cost, cost)
+        return Rp, tp, pts, lam, cost, converged
+
+    def run_pass(Rp, tp, pts, mask, robust, n_iters):
+        cost = total_cost(Rp, tp, pts, mask, robust)
+        lam = torch.tensor(1e-4, dtype=dt, device=dev)
+        for _ in range(n_iters):
+            Rp, tp, pts, lam, cost, converged = lm_iteration(Rp, tp, pts, lam, cost, mask, robust)
+            if bool(converged):  # a stopped pass leaves its state unchanged
+                break
+        return Rp, tp, pts, cost
+
+    # pass 1: robust, rotations projected to SO(3) at entry and exit (BA
+    # output feeds keyframe poses and triangulation)
+    R1, t1, pts1, _ = run_pass(lie.so3_project(R), t, points, obs_valid, True, iters_huber)
+    R1 = lie.so3_project(R1)
+    s, _, Xc = chi2_of(R1, t1, pts1)
+    keep = obs_valid & (s <= chi2_th) & (Xc[..., 2] > 1e-6)
+    # pass 2: quadratic on the survivors
+    R2, t2, pts2, cost = run_pass(R1, t1, pts1, keep, False, iters_trimmed)
+    R2 = lie.so3_project(R2)
+    s_final, _, Xc2 = chi2_of(R2, t2, pts2)
+    inlier_obs = obs_valid & (s_final <= chi2_th) & (Xc2[..., 2] > 1e-6)
+    return BAResult(R=R2, t=t2, points=pts2, inlier_obs=inlier_obs, cost=cost)
