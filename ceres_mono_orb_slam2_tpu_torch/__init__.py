@@ -3,9 +3,9 @@
 The JAX package `ceres_mono_orb_slam2_tpu` is the reference this package is
 checked against, module for module (same `ops/`, `models/`, `utils/` layout
 and names). This package imports `torch` and never `jax`. Every public entry
-point takes an explicit `device`; on a CUDA device the ORB front end runs the
-hand-written Hopper kernels in `csrc/`, on the CPU their plain PyTorch
-versions.
+point runs on the card unless the caller passes `device="cpu"`; on a CUDA
+device the ORB front end runs the hand-written Hopper kernels in `csrc/`, on
+the CPU their plain PyTorch versions.
 """
 
 __version__ = "0.1.0"

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ceres_mono_orb_slam2_tpu_torch.utils.padding import bucket
+from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def _pool_scatter(dev, idx, pos, normal, mind, maxd, desc, valid):
@@ -34,10 +35,10 @@ def _pool_gather(jpos, jnormal, jmind, jmaxd, jdesc, jvalid, slots):
 
 
 class DeviceMapPool:
-    def __init__(self, map_, cap: int = 4096, device="cpu"):
+    def __init__(self, map_, cap: int = 4096, device=DEFAULT_DEVICE):
         self.map = map_
         self.cap = cap
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.epoch = -1  # != any map_epoch: the first sync() mirrors everything
         self._alloc_host(cap)
         # id -> slot lookup, grown with next_mp_id (ids are monotonic)

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ceres_mono_orb_slam2_tpu_torch.ops import camera, frustum, matcher, optim
+from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class FusedOut(NamedTuple):
@@ -94,7 +95,7 @@ class FusedStep(nn.Module):
     current frame's features, the last frame's, the motion prediction and
     the local-map block (see `forward`)."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=DEFAULT_DEVICE):
         super().__init__()
         cam = config.camera
         self.register_buffer("K", torch.as_tensor(cam.K, dtype=torch.float32))
@@ -105,8 +106,7 @@ class FusedStep(nn.Module):
             config.orb.inv_level_sigma2.astype(np.float32)))
         self.log_scale = float(np.log(config.orb.scale_factor))
         self.n_levels = config.orb.n_levels
-        if device is not None:
-            self.to(device)
+        self.to(resolve_device(device))
 
     def _match_motion(self, d, und, cur_oct, cur_angle, cur_valid, last_oct, last_angle,
                       pr_uv, pr_ok, th):

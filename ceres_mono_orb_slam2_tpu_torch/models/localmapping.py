@@ -18,6 +18,7 @@ import torch
 from ceres_mono_orb_slam2_tpu_torch.models.map import KeyFrame, Map
 from ceres_mono_orb_slam2_tpu_torch.ops import mapping_batch, matcher, optim
 from ceres_mono_orb_slam2_tpu_torch.ops.frustum import frustum_and_scale
+from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 # the dense Schur's (M, P, 6, 3) cross tensor is the guard's measure, as in
@@ -30,10 +31,10 @@ class LocalMapping:
     # covisible window of CreateNewMapPoints (reference LocalMapping.cc:202)
     TRI_BATCH = 20
 
-    def __init__(self, config, map_: Map, device="cpu"):
+    def __init__(self, config, map_: Map, device=DEFAULT_DEVICE):
         self.config = config
         self.map = map_
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.scale_factors = config.orb.scale_factors
         self.level_sigma2 = config.orb.level_sigma2
         self.inv_sigma2 = config.orb.inv_level_sigma2

@@ -13,12 +13,15 @@ import numpy as np
 import torch
 
 from ceres_mono_orb_slam2_tpu_torch.ops import optim
+from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
-def global_bundle_adjustment(m, config, n_iters: int = 20, fixed_kf_ids=None, device="cpu"):
+def global_bundle_adjustment(m, config, n_iters: int = 20, fixed_kf_ids=None,
+                             device=DEFAULT_DEVICE):
     """Full Huber-robust BA over the whole map (GlobalBundleAdjustemnt),
     applied in place. The first keyframe (or `fixed_kf_ids`) fixes the gauge.
     Returns False when the map has too few observations to solve."""
+    device = resolve_device(device)
     kfs = m.all_keyframes()
     mps = m.all_map_points()
     if not kfs or not mps:

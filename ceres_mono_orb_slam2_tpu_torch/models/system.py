@@ -19,6 +19,7 @@ from ceres_mono_orb_slam2_tpu_torch.models.map import Map
 from ceres_mono_orb_slam2_tpu_torch.models.tracking import Tracking
 from ceres_mono_orb_slam2_tpu_torch.ops import lie
 from ceres_mono_orb_slam2_tpu_torch.ops.orb import ORBExtractor
+from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 log = logging.getLogger(__name__)
 
@@ -26,7 +27,7 @@ log = logging.getLogger(__name__)
 class MonoSLAM:
     """Python equivalent of the reference MonoORBSlam facade."""
 
-    def __init__(self, config, device="cpu", vocabulary=None, threaded: bool = False,
+    def __init__(self, config, device=DEFAULT_DEVICE, vocabulary=None, threaded: bool = False,
                  pipelined: bool = False, generator: Optional[torch.Generator] = None):
         if vocabulary is not None:
             raise NotImplementedError("loop closing / relocalization (vocabulary) is not ported yet")
@@ -35,7 +36,7 @@ class MonoSLAM:
         if pipelined:
             raise NotImplementedError("pipelined tracking is not ported yet")
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.map = Map()
         self.extractor = ORBExtractor(config.orb, device=self.device)
         self.local_mapper = LocalMapping(config, self.map, device=self.device)

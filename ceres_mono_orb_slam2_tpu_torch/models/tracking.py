@@ -22,6 +22,7 @@ import torch
 from ceres_mono_orb_slam2_tpu_torch.models.frame import Frame, compute_image_bounds
 from ceres_mono_orb_slam2_tpu_torch.models.map import Map
 from ceres_mono_orb_slam2_tpu_torch.ops import frustum, matcher, optim, twoview
+from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 log = logging.getLogger(__name__)
 
@@ -34,13 +35,13 @@ class State(enum.Enum):
 
 
 class Tracking:
-    def __init__(self, config, map_: Map, extractor, local_mapper=None, device="cpu",
+    def __init__(self, config, map_: Map, extractor, local_mapper=None, device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None):
         self.config = config
         self.map = map_
         self.extractor = extractor
         self.local_mapper = local_mapper
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         cam = config.camera
         self.cam = cam
         self.jK = self._dev(cam.K)

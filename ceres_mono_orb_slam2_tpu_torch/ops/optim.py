@@ -3,8 +3,9 @@
 Port of `ceres_mono_orb_slam2_tpu/ops/optim.py`: motion-only pose
 optimization and bundle adjustment with a dense point-block Schur complement.
 Residuals and analytic Jacobians are batched over observations; the normal
-equations assemble with `index_add_` (segment sums), not the one-hot matmuls
-the TPU needed, whose (O, M) operand is 1 GB at the default BA budgets.
+equations assemble with deterministic segment sums (`SegmentSum`), not the
+one-hot matmuls the TPU needed, whose (O, M) operand is 1 GB at the default
+BA budgets.
 
 Conventions: poses are world->camera (Tcw) as (R, t); updates are
 left-multiplicative se3 increments T <- exp(dx) * T.
@@ -174,6 +175,52 @@ def pose_optimization(K, R0, t0, pts3d, uv, inv_sigma2, valid, max_iters: int = 
                          n_inliers=active.to(torch.int32).sum(), cost=cost)
 
 
+class SegmentSum:
+    """Deterministic segment sums over a fixed set of observations.
+
+    `SegmentSum(keys, n)(v)` equals `zeros(n, ...).index_add_(0, keys, v)`
+    up to summation order, but uses no float atomics, so the same inputs
+    give the same bits on every run: each segment's contributions are
+    gathered, in observation order, into a zero-padded (n, width) block and
+    summed along it, a reduction whose order depends only on the shapes.
+    The index block is built once per problem; `width` is the largest
+    segment (one host read of it).
+    """
+
+    def __init__(self, keys: torch.Tensor, n_segments: int):
+        keys = keys.long()
+        n_obs = keys.shape[0]
+        counts = torch.bincount(keys, minlength=n_segments)
+        width = max(int(counts.max()) if n_segments else 0, 1)
+        order = torch.sort(keys, stable=True).indices
+        sorted_keys = keys[order]
+        rank = torch.arange(n_obs, device=keys.device) - (torch.cumsum(counts, 0) - counts)[sorted_keys]
+        # entries past a segment's count point at an appended zero row
+        self.index = torch.full((n_segments, width), n_obs, dtype=torch.long, device=keys.device)
+        self.index[sorted_keys, rank] = order
+
+    def __call__(self, values: torch.Tensor) -> torch.Tensor:
+        padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+        return padded[self.index].sum(1)
+
+
+def assemble_normal_equations(by_pose: SegmentSum, by_point: SegmentSum, by_pair: SegmentSum,
+                              A, B, r, w, P: int, M: int):
+    """BA normal-equation blocks from per-observation Jacobians A (O, 2, 6)
+    (pose), B (O, 2, 3) (point), residuals r (O, 2) and weights w (O,):
+    Hpp (P, 6, 6), bp (P, 6), Hll (M, 3, 3), bl (M, 3) and the pose-point
+    cross blocks U (M, P, 6, 3), summed per pose, per point and per
+    (point, pose) pair by the three `SegmentSum`s."""
+    wA = w[:, None, None] * A
+    wB = w[:, None, None] * B
+    Hpp = by_pose(torch.einsum("oik,oil->okl", wA, A))
+    bp = by_pose(-torch.einsum("oik,oi->ok", wA, r))
+    Hll = by_point(torch.einsum("oik,oil->okl", wB, B))
+    bl = by_point(-torch.einsum("oik,oi->ok", wB, r))
+    U = by_pair(torch.einsum("oik,oil->okl", wA, B)).reshape(M, P, 6, 3)
+    return Hpp, bp, Hll, bl, U
+
+
 class BAResult(NamedTuple):
     R: torch.Tensor  # (P, 3, 3)
     t: torch.Tensor  # (P, 3)
@@ -187,9 +234,10 @@ def bundle_adjustment(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigm
                       iters_trimmed: int = 10, chi2_th: float = CHI2_MONO) -> BAResult:
     """Bundle adjustment with dense point-block Schur elimination
     (LocalBundleAdjustment's two passes): pass 1 Huber-robust, outliers
-    (chi2 > 5.991) dropped, pass 2 trimmed quadratic. The pose-point cross
-    blocks U (M, P, 6, 3) are accumulated with one index_put, and the reduced
-    6P x 6P system is solved by Cholesky.
+    (chi2 > 5.991) dropped, pass 2 trimmed quadratic. The normal equations,
+    pose-point cross blocks U (M, P, 6, 3) included, are deterministic
+    segment sums (`assemble_normal_equations`), and the reduced 6P x 6P
+    system is solved by Cholesky.
 
     iters_huber=0 with iters_trimmed>0 over all-valid observations is a plain
     global BA. Each pass exits at the Ceres function-tolerance convergence
@@ -204,6 +252,7 @@ def bundle_adjustment(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigm
     eye6 = torch.eye(6, dtype=dt, device=dev)
     op = obs_pose.long()
     oj = obs_point.long()
+    by_pose, by_point, by_pair = SegmentSum(op, P), SegmentSum(oj, M), SegmentSum(oj * P + op, M * P)
 
     def chi2_of(Rp, tp, pts):
         Xc = (Rp[op] @ pts[oj][..., None])[..., 0] + tp[op]
@@ -223,19 +272,7 @@ def bundle_adjustment(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigm
         Jp = _proj_jacobian(K, Xc)  # (O, 2, 3)
         A = _pose_jacobian(Jp, Xc)  # (O, 2, 6)
         B = -(Jp @ Rp[op])  # (O, 2, 3): dr/dX = -Jp R
-        wA = w[:, None, None] * A
-        wB = w[:, None, None] * B
-
-        Hpp = torch.zeros((P, 6, 6), dtype=dt, device=dev).index_add_(
-            0, op, torch.einsum("oik,oil->okl", wA, A))
-        bp = torch.zeros((P, 6), dtype=dt, device=dev).index_add_(
-            0, op, -torch.einsum("oik,oi->ok", wA, r))
-        Hll = torch.zeros((M, 3, 3), dtype=dt, device=dev).index_add_(
-            0, oj, torch.einsum("oik,oil->okl", wB, B))
-        bl = torch.zeros((M, 3), dtype=dt, device=dev).index_add_(
-            0, oj, -torch.einsum("oik,oi->ok", wB, r))
-        U = torch.zeros((M, P, 6, 3), dtype=dt, device=dev).index_put_(
-            (oj, op), torch.einsum("oik,oil->okl", wA, B), accumulate=True)
+        Hpp, bp, Hll, bl, U = assemble_normal_equations(by_pose, by_point, by_pair, A, B, r, w, P, M)
         U3 = U.reshape(M, P * 6, 3)
 
         Hll_d = Hll + lam * (Hll * eye3) + 1e-6 * eye3

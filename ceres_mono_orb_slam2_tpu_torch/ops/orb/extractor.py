@@ -21,6 +21,7 @@ from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels
 from ceres_mono_orb_slam2_tpu_torch.ops.orb.kernels import DESC_R, EDGE, HALF_PATCH
 from ceres_mono_orb_slam2_tpu_torch.ops.orb.pattern import BIT_PATTERN_31
 from ceres_mono_orb_slam2_tpu_torch.utils.config import ORBConfig
+from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 CELL = 32  # spatial-uniformity cell size
 TOP_PER_CELL = 8  # candidates kept per cell before the rank-major global top-N
@@ -116,7 +117,7 @@ class ORBExtractor(nn.Module):
     uint8/float images (numpy or tensors) and returns FrameFeatures on
     `device`. The rBRIEF tap table and IC moment masks are buffers."""
 
-    def __init__(self, config: ORBConfig, device=None):
+    def __init__(self, config: ORBConfig, device=DEFAULT_DEVICE):
         super().__init__()
         self.config = config
         self.features_per_level = [int(n) for n in config.features_per_level]
@@ -127,8 +128,7 @@ class ORBExtractor(nn.Module):
             np.stack([mx.reshape(-1), my.reshape(-1)], axis=1), dtype=torch.float32))
         self.register_buffer("byte_weights", torch.as_tensor(
             1 << np.arange(8), dtype=torch.int32))
-        if device is not None:
-            self.to(device)
+        self.to(resolve_device(device))
 
     @property
     def device(self) -> torch.device:

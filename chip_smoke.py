@@ -6,11 +6,13 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. build the CUDA kernels of `ceres_mono_orb_slam2_tpu_torch/csrc/` with nvcc;
   2. hold each kernel bit-exact to its plain PyTorch version at the 8 KITTI
      pyramid-level shapes (B=1 and B=8, both patch radii, u8-valued and float
-     inputs) and time both with CUDA events;
-  3. render 60 frames of the spiral ring world at 1241x376 on the GPU and run
+     inputs) and time a frame's launches of each (`time_ms`);
+  3. solve one bundle-adjustment problem on the card twice and require
+     bit-identical results;
+  4. render 60 frames of the spiral ring world at 1241x376 on the GPU and run
      the serial `MonoSLAM` over them with 2000 ORB features, asserting
      initialisation, tracking, mapping, kernel use and trajectory accuracy;
-  4. print the card's name and power limit.
+  5. print the card's name and power limit.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs one CUDA device.
 """
@@ -30,26 +32,45 @@ import torch
 KITTI_LEVELS = [(376, 1241), (313, 1034), (261, 862), (218, 718), (181, 598),
                 (151, 499), (126, 416), (105, 346)]
 N_PER_LEVEL = [434, 362, 302, 251, 209, 175, 145, 122]
-TIMING_RUNS = 25
+TIMING_CALLS = 50  # fn() calls captured back to back in one CUDA graph
+TIMING_REPLAYS = 5
 
 
 def log(msg: str):
     print(msg, flush=True)
 
 
-def time_ms(fn, runs: int = TIMING_RUNS) -> float:
-    """Median CUDA-event time of fn() over `runs` launches after warm-up."""
-    for _ in range(3):
-        fn()
+def time_ms(fn, calls: int = TIMING_CALLS, replays: int = TIMING_REPLAYS) -> float:
+    """Device ms of one fn() call.
+
+    After warm-up, `calls` calls of fn are captured back to back into one
+    CUDA graph, so their outputs are allocated once, at capture, and no host
+    work (Python, ctypes, allocation) sits between the launches. Each replay
+    runs between one CUDA-event pair; the result is the median replay over
+    `calls`. The inputs stay in the 50 MB L2 from one call to the next, as
+    on the main path, where the extractor has just written the pyramid.
+    """
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     times = []
-    for _ in range(runs):
+    for _ in range(replays):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
+    del graph
     return float(np.median(times))
 
 
@@ -63,12 +84,12 @@ def phase_build():
 
 def phase_kernels():
     """Bit-exact checks at every level shape; returns per-kernel JSON rows
-    with the B=1 main-path time summed over the 8 levels."""
+    with the B=1 main-path time of one frame (all 8 levels, both radii)."""
     from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
 
     g = torch.Generator(device="cuda").manual_seed(0)
     err = {"fast_nms": 0.0, "gather_patches": 0.0}
-    ms = {"fast_nms": [0.0, 0.0], "gather_patches": [0.0, 0.0]}
+    frame = []  # the B=1 float inputs of one frame: (img, ys, xs) per level
     for (H, W), n in zip(KITTI_LEVELS, N_PER_LEVEL):
         for B in (1, 8):
             u8 = torch.randint(0, 256, (B, H, W), device="cuda", generator=g).float()
@@ -89,19 +110,19 @@ def phase_kernels():
                     if not torch.equal(a, b):
                         raise AssertionError(f"gather_patches r={r} differs at {(B, H, W)}: {e}")
                     err["gather_patches"] = max(err["gather_patches"], e)
-            t_fast = time_ms(lambda: k.fast_nms(fl))
-            t_fast_p = time_ms(lambda: k.nms3(k.fast_score_map(fl)))
-            t_g = sum(time_ms(lambda r=r: k.gather_patches(fl, ys, xs, r)) for r in (15, 19))
-            t_g_p = sum(time_ms(lambda r=r: k.gather_patches_plain(fl, ys, xs, r)) for r in (15, 19))
-            log(f"[kernels] B={B} {H}x{W} n={n}: fast_nms {t_fast:.4f} ms (plain {t_fast_p:.4f}); "
-                f"gather r15+r19 {t_g:.4f} ms (plain {t_g_p:.4f}); "
-                f"bit-exact (torch.equal, tolerance 0)")
             if B == 1:
-                ms["fast_nms"][0] += t_fast
-                ms["fast_nms"][1] += t_fast_p
-                ms["gather_patches"][0] += t_g
-                ms["gather_patches"][1] += t_g_p
+                frame.append((fl, ys, xs))
+        log(f"[kernels] {H}x{W} n={n}, B=1 and B=8: bit-exact (torch.equal, tolerance 0)")
     torch.cuda.synchronize()
+    ms = {
+        "fast_nms": (time_ms(lambda: [k.fast_nms(im) for im, _, _ in frame]),
+                     time_ms(lambda: [k.nms3(k.fast_score_map(im)) for im, _, _ in frame])),
+        "gather_patches": (
+            time_ms(lambda: [k.gather_patches(im, ys, xs, r) for im, ys, xs in frame
+                             for r in (15, 19)]),
+            time_ms(lambda: [k.gather_patches_plain(im, ys, xs, r) for im, ys, xs in frame
+                             for r in (15, 19)])),
+    }
     rows = [
         {"name": "fast_nms", "route": "cuda",
          "source": "ceres_mono_orb_slam2_tpu_torch/csrc/fast_nms.cu",
@@ -113,9 +134,50 @@ def phase_kernels():
          "max_abs_err": err["gather_patches"], "ms": ms["gather_patches"][0],
          "plain_ms": ms["gather_patches"][1]},
     ]
-    log("[kernels] per-frame (B=1, 8 levels) ms: " + ", ".join(
+    log("[kernels] per-frame (B=1, 8 levels) device ms: " + ", ".join(
         f"{r['name']} {r['ms']:.4f} (plain {r['plain_ms']:.4f})" for r in rows))
     return rows
+
+
+def ba_problem(seed: int = 0, P: int = 20, M: int = 3000, per_point: int = 4):
+    """A local-BA-sized problem on the card: P poses along a line, M points
+    seen by `per_point` poses each, pixel noise and 2% gross outliers."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[500.0, 0, 620.0], [0, 500.0, 188.0], [0, 0, 1]], np.float32)
+    pts = np.stack([rng.uniform(-6, 6, M), rng.uniform(-2, 2, M), rng.uniform(6, 20, M)], -1)
+    R = np.repeat(np.eye(3)[None], P, 0)
+    t = np.stack([-0.3 * np.arange(P), np.zeros(P), np.zeros(P)], -1)
+    op = np.stack([rng.choice(P, per_point, replace=False) for _ in range(M)]).reshape(-1)
+    oj = np.repeat(np.arange(M), per_point)
+    Xc = pts[oj] + t[op]
+    uv = K[:2, :2].diagonal() * Xc[:, :2] / Xc[:, 2:] + K[:2, 2]
+    uv += rng.standard_normal(uv.shape) * 0.7
+    bad = rng.random(len(uv)) < 0.02
+    uv[bad] += rng.uniform(20, 60, (bad.sum(), 2))
+    t0 = t + rng.standard_normal(t.shape) * 0.02
+    t0[:2] = t[:2]
+    fixed = np.zeros(P, bool)
+    fixed[:2] = True
+    dev = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device="cuda")  # noqa: E731
+    return (dev(K), dev(R), dev(t0), dev(pts + rng.standard_normal(pts.shape) * 0.05),
+            dev(op, torch.int64), dev(oj, torch.int64), dev(uv), dev(rng.choice([1.0, 0.69], len(op))),
+            dev(np.ones(len(op), bool), torch.bool), dev(fixed, torch.bool),
+            dev(np.ones(M, bool), torch.bool))
+
+
+def phase_ba():
+    """Bundle adjustment twice on one CUDA problem: bit-identical results."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import optim
+
+    args = ba_problem()
+    runs = [optim.bundle_adjustment(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log(f"[ba] P={args[1].shape[0]} M={args[3].shape[0]} O={args[4].shape[0]}: cost "
+        f"{float(runs[0].cost):.6f} / {float(runs[1].cost):.6f}, inliers "
+        f"{int(runs[0].inlier_obs.sum())}, two calls bit-identical: {same}")
+    if not same:
+        raise AssertionError("bundle_adjustment is not deterministic on the card")
 
 
 def phase_slam():
@@ -203,6 +265,7 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     phase_build()
     rows = phase_kernels()
+    phase_ba()
     launches = phase_slam()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()

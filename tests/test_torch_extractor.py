@@ -34,7 +34,7 @@ def test_extractor_parity(rng, hw):
     img = _image(rng, *hw)
     cfg = ORBConfig(n_features=1000)
     fj = jax.tree_util.tree_map(lambda a: np.asarray(a)[0], JaxExtractor(cfg).extract(img))
-    ft = [a[0].numpy() for a in ORBExtractor(cfg).extract(img)]
+    ft = [a[0].numpy() for a in ORBExtractor(cfg, device="cpu").extract(img)]
     xy_j, xy_t = fj.xy, ft[0]
     np.testing.assert_array_equal(ft[3], fj.octave)  # static per-level slots
     np.testing.assert_array_equal(ft[5], fj.valid)

@@ -69,7 +69,7 @@ def test_fused_step_parity(jax_state):
 
     # the port's pool over the converted map, gathered by the same point ids
     pmap = map_from_reference(slam.map)
-    ppool = DeviceMapPool(pmap, cap=pool.cap)
+    ppool = DeviceMapPool(pmap, cap=pool.cap, device="cpu")
     ppool.sync()
     L = len(slots_padded)
     pslots = np.full(L, ppool.cap, np.int64)
@@ -81,7 +81,7 @@ def test_fused_step_parity(jax_state):
 
     T = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
     cur = features_from_numpy(*(np.asarray(a) for a in feats))
-    step = FusedStep(config_from_reference(cfg))
+    step = FusedStep(config_from_reference(cfg), device="cpu")
     out_t = step(cur.xy, cur.octave, cur.angle, cur.desc, cur.valid,
                  T(last_oct), T(last_angle), T(last_desc), T(last_pos), T(last_ok),
                  T(last_local_row), T(R_pred), T(t_pred), *lblock_t, T(bounds), float(th_local))
@@ -134,7 +134,7 @@ def test_device_pool_incremental_sync(rng):
         mp.normal = rng.standard_normal(3).astype(np.float32)
         mp.min_dist, mp.max_dist = 1.0, 4.0
         mps.append(mp)
-    pool = DeviceMapPool(m, cap=16)  # forces growth
+    pool = DeviceMapPool(m, cap=16, device="cpu")  # forces growth
     pool.sync()
 
     def check():

@@ -8,6 +8,11 @@ Tolerances, with their reasons:
   classifications are far from the gate).
 - bundle_adjustment at P=6, M=200, O=800: 1e-3 relative, since the Schur
   reductions sum in a different order (segment sums vs one-hot matmuls).
+- the deterministic normal-equation assembly against PR 1's `index_add_`
+  assembly: both sum the same k terms of a segment in different orders, and
+  each order is within (k - 1) u sum|x| of the exact sum (u the unit
+  roundoff, 2^-53 in f64 and 2^-24 in f32), so they differ by at most
+  (k - 1) 2u sum|x|; f64 is also held to 1e-12 sum|x|.
 - initialize_two_view: both sides get the same RANSAC noise, so they pick
   the same minimal sets and hypotheses; success flags equal and R21, t21
   within 1e-3 on a well-conditioned pair. The chosen pose is the raw 8-point
@@ -18,6 +23,7 @@ Tolerances, with their reasons:
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from ceres_mono_orb_slam2_tpu.ops import lie as jlie, optim as jopt, twoview as jtv
@@ -101,6 +107,46 @@ def test_bundle_adjustment_parity(rng):
     np.testing.assert_allclose(float(rt.cost), float(rj.cost), rtol=1e-3)
     # fixed poses stay fixed
     np.testing.assert_array_equal(rt.R.numpy()[:2], np.asarray(args[1])[:2])
+
+
+def _index_add_assembly(op, oj, A, B, r, w, P, M):
+    """The normal-equation assembly of PR 1 (float atomics on CUDA)."""
+    wA, wB = w[:, None, None] * A, w[:, None, None] * B
+    z = lambda *shape: torch.zeros(shape, dtype=A.dtype)  # noqa: E731
+    return (z(P, 6, 6).index_add_(0, op, torch.einsum("oik,oil->okl", wA, A)),
+            z(P, 6).index_add_(0, op, -torch.einsum("oik,oi->ok", wA, r)),
+            z(M, 3, 3).index_add_(0, oj, torch.einsum("oik,oil->okl", wB, B)),
+            z(M, 3).index_add_(0, oj, -torch.einsum("oik,oi->ok", wB, r)),
+            z(M, P, 6, 3).index_put_((oj, op), torch.einsum("oik,oil->okl", wA, B),
+                                     accumulate=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_deterministic_assembly_matches_index_add(rng, dtype):
+    P, M, O = 7, 300, 2500
+    op = torch.as_tensor(rng.integers(0, P, O))
+    oj = torch.as_tensor(rng.integers(0, M, O))
+    oj[-300:], op[-300:] = oj[:300].clone(), op[:300].clone()  # repeated (point, pose) pairs
+    A, B, r, w = (torch.as_tensor(x, dtype=dtype) for x in (
+        rng.standard_normal((O, 2, 6)) * 50, rng.standard_normal((O, 2, 3)) * 50,
+        rng.standard_normal((O, 2)), rng.uniform(0.2, 1.0, O)))
+    pair = oj * P + op
+    seg = topt.SegmentSum(op, P), topt.SegmentSum(oj, M), topt.SegmentSum(pair, M * P)
+    assert seg[2].index.shape[1] >= 2  # some pair segments hold several terms
+    new = topt.assemble_normal_equations(*seg, A, B, r, w, P, M)
+    old = _index_add_assembly(op, oj, A, B, r, w, P, M)
+    mag = [m.abs() for m in _index_add_assembly(op, oj, A.abs(), B.abs(), r.abs(), w, P, M)]
+    k_pose, k_point = torch.bincount(op, minlength=P), torch.bincount(oj, minlength=M)
+    k_pair = torch.bincount(pair, minlength=M * P).reshape(M, P)
+    terms = (k_pose[:, None, None], k_pose[:, None], k_point[:, None, None], k_point[:, None],
+             k_pair[:, :, None, None])
+    u = torch.finfo(dtype).eps / 2
+    for name, a, b, m, k in zip(("Hpp", "bp", "Hll", "bl", "U"), new, old, mag, terms):
+        assert a.shape == b.shape, name
+        bound = (k - 1).clamp_min(0) * 2 * u * m
+        if dtype == torch.float64:
+            bound = torch.minimum(bound, 1e-12 * m)
+        assert ((a - b).abs() <= bound).all(), (name, float((a - b).abs().max()))
 
 
 def _two_view(rng, n=400, baseline=0.8):

@@ -82,7 +82,7 @@ def test_ic_mask_and_tap_table():
 
     np.testing.assert_array_equal(text.bin_tap_table(),
                                   jext.ORBExtractor(ORBConfig())._bin_tap_table)
-    ex = text.ORBExtractor(ORBConfig())
+    ex = text.ORBExtractor(ORBConfig(), device="cpu")
     mx, my = tk.ic_angle_mask()
     np.testing.assert_array_equal(ex.moment_masks.numpy(),
                                   np.stack([mx.reshape(-1), my.reshape(-1)], 1))
