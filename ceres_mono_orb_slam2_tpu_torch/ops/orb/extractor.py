@@ -5,8 +5,13 @@ FAST with the two-threshold per-cell rule, per-cell top-k + rank-major global
 top-N (the octree's spatial uniformity), IC-angle orientation, 7x7 blur and
 rBRIEF with the bit_pattern_31 table quantised to 30 rotation bins.
 
-On a CUDA tensor the FAST+NMS and the patch gathers run the CUDA kernels of
-`ops/orb/kernels.py`; on a CPU tensor their plain versions.
+The pyramid is built level by level into one packed (B, total) float32
+buffer (`kernels.PyramidLayout`: level l is the contiguous (H_l, W_l) plane
+at offset l of each row), with its 7x7-blurred, 8-bit-rounded copy in a
+second buffer of the same layout. FAST+NMS then runs once over the whole
+packed pyramid and the patch gathers once over all levels and both patch
+sets: on a CUDA tensor one launch each of the kernels of `ops/orb/kernels.py`,
+on a CPU tensor their plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 from torch import nn
 
 from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels
-from ceres_mono_orb_slam2_tpu_torch.ops.orb.kernels import DESC_R, EDGE, HALF_PATCH
+from ceres_mono_orb_slam2_tpu_torch.ops.orb.kernels import DESC_R, EDGE
 from ceres_mono_orb_slam2_tpu_torch.ops.orb.pattern import BIT_PATTERN_31
 from ceres_mono_orb_slam2_tpu_torch.utils.config import ORBConfig
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -129,51 +134,69 @@ class ORBExtractor(nn.Module):
         self.register_buffer("byte_weights", torch.as_tensor(
             1 << np.arange(8), dtype=torch.int32))
         self.to(resolve_device(device))
+        self._slot_tables = {}  # per-level keypoint counts -> (level, scale) per slot
 
     @property
     def device(self) -> torch.device:
         return self.tap_table.device
 
-    def _level(self, img_l: torch.Tensor, n_keep: int, lv: int):
-        """Detection + patch gathers of one pyramid level."""
+    def pyramid(self, images: torch.Tensor):
+        """(B, h, w) float32 -> (layout, raw, blurred): the packed pyramid
+        (each level the antialiased bilinear resize of the one before) and
+        its 7x7 blur rounded to the 8-bit grid (the reference blurs into an
+        8-bit Mat and compares integers)."""
         cfg = self.config
-        B, Hl, Wl = img_l.shape
-        score = kernels.fast_nms(img_l)
-        # zero the EDGE margin so every kept keypoint admits full patches
-        m = EDGE
-        border = torch.zeros((Hl, Wl), dtype=torch.float32, device=img_l.device)
-        border[m:Hl - m, m:Wl - m] = 1.0
-        score = score * border
-        ys, xs, resp, valid = _select_level_keypoints(score, n_keep, cfg.ini_th_fast,
-                                                      cfg.min_th_fast)
-        safe_y = torch.where(valid, ys, m).to(torch.int32).contiguous()
-        safe_x = torch.where(valid, xs, m).to(torch.int32).contiguous()
-        # the descriptor image is rounded to the 8-bit grid before the gather
-        # (the reference blurs into an 8-bit Mat and compares integers)
-        blurred = torch.floor(kernels.gaussian_blur7(img_l) + 0.5).clamp(0.0, 255.0)
-        # raw patches for the IC angle (orientation is computed pre-blur),
-        # blurred ones for rBRIEF
-        p31 = kernels.gather_patches(img_l, safe_y, safe_x, HALF_PATCH)
-        p39 = kernels.gather_patches(blurred.contiguous(), safe_y, safe_x, DESC_R)
-        xy0 = torch.stack([xs, ys], dim=-1).to(torch.float32) * self.scale_factors[lv]
-        octave = torch.full(ys.shape, lv, dtype=torch.int32, device=img_l.device)
-        return xy0, resp, octave, valid, p31, p39
+        B, h, w = images.shape
+        layout = kernels.PyramidLayout.of(_level_sizes(h, w, cfg.n_levels, cfg.scale_factor))
+        raw = torch.empty((B, layout.total), dtype=torch.float32, device=images.device)
+        blurred = torch.empty_like(raw)
+        raw_l = layout.views(raw)
+        raw_l[0].copy_(images)
+        for lv in range(1, cfg.n_levels):
+            raw_l[lv].copy_(kernels.resize_bilinear(raw_l[lv - 1], *layout.shapes[lv]))
+        for src, dst in zip(raw_l, layout.views(blurred)):
+            torch.floor(kernels.gaussian_blur7(src) + 0.5, out=dst).clamp_(0.0, 255.0)
+        return layout, raw, blurred
+
+    def detect(self, raw: torch.Tensor, layout):
+        """FAST + NMS of all levels of the packed pyramid, the EDGE margin
+        zeroed so that every kept keypoint admits full patches, then each
+        level's keypoint selection. Returns level-major (B, N) ys, xs, resp,
+        valid and the keypoint count of each level (its budget, or fewer on
+        a level with fewer candidate slots)."""
+        cfg = self.config
+        score = kernels.fast_nms_pyramid(raw, layout, edge=EDGE)
+        sel = [_select_level_keypoints(score_l, n_keep, cfg.ini_th_fast, cfg.min_th_fast)
+               for score_l, n_keep in zip(layout.views(score), self.features_per_level)]
+        counts = tuple(s[0].shape[1] for s in sel)
+        return (*(torch.cat([s[i] for s in sel], 1) for i in range(4)), counts)
+
+    def slot_tables(self, counts: tuple):
+        """(N,) int32 level and (N,) float32 level-0 scale of each keypoint
+        slot for these per-level counts, built once per count tuple."""
+        tables = self._slot_tables.get(counts)
+        if tables is None:
+            level = np.repeat(np.arange(len(counts)), counts)
+            tables = (torch.as_tensor(level, dtype=torch.int32, device=self.device),
+                      torch.as_tensor(np.float32(self.scale_factors)[level], device=self.device))
+            self._slot_tables[counts] = tables
+        return tables
 
     @torch.no_grad()
     def forward(self, images: torch.Tensor) -> FrameFeatures:
         """images: (B, H, W) uint8 tensor on this extractor's device."""
-        cfg = self.config
         images = images.to(torch.float32)
-        B, h, w = images.shape
-        sizes = _level_sizes(h, w, cfg.n_levels, cfg.scale_factor)
-        outs = []
-        img_l = images.contiguous()
-        for lv in range(cfg.n_levels):
-            if lv > 0:
-                img_l = kernels.resize_bilinear(img_l, *sizes[lv]).contiguous()
-            outs.append(self._level(img_l, self.features_per_level[lv], lv))
-        xy, resp, octave, valid, p31, p39 = (torch.cat([o[i] for o in outs], 1)
-                                             for i in range(6))
+        B = images.shape[0]
+        layout, raw, blurred = self.pyramid(images)
+        ys, xs, resp, valid, counts = self.detect(raw, layout)
+        safe_y = torch.where(valid, ys, EDGE).to(torch.int32).contiguous()
+        safe_x = torch.where(valid, xs, EDGE).to(torch.int32).contiguous()
+        # raw patches for the IC angle (orientation is computed pre-blur),
+        # 8-bit blurred ones for rBRIEF
+        p31, pf8 = kernels.gather_pyramid_patches(raw, blurred, layout, safe_y, safe_x, counts)
+        level, scale = self.slot_tables(counts)
+        xy = torch.stack([xs, ys], dim=-1).to(torch.float32) * scale[:, None]
+        octave = level.expand(B, -1).contiguous()
         N = p31.shape[1]
 
         # IC angle: one moment product over all keypoints of the frame
@@ -182,7 +205,7 @@ class ORBExtractor(nn.Module):
 
         # rBRIEF on the 8-bit patch, with the tap table of the keypoint's
         # rotation bin
-        pf8 = (p39.reshape(B * N, -1) + 0.5).clamp(0.0, 255.0).to(torch.uint8)
+        pf8 = pf8.reshape(B * N, -1)
         two_pi = 2.0 * np.pi
         bin_idx = torch.round(torch.remainder(angle, two_pi) / (two_pi / N_ANGLE_BINS))
         bin_idx = torch.remainder(bin_idx.to(torch.int64), N_ANGLE_BINS)

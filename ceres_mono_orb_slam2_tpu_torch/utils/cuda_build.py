@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels in `csrc/`.
 
-The kernels have a plain C interface and are bound with ctypes: `nvcc` builds
-all `csrc/*.cu` files into one shared library for `sm_90a` (Hopper) at first
-use, keyed by a hash of the sources and flags, into `.kernels_build/` at the
-root of the checkout (listed in `.gitignore`). Nothing here runs at import.
+The kernels have a plain C interface and are bound with ctypes: at first
+use, one `nvcc` per `csrc/*.cu` file, all started together, compiles it for
+`sm_90a` (Hopper), and the objects are linked into one shared library keyed
+by a hash of the sources and flags, in `.kernels_build/` at the root of the
+checkout (listed in `.gitignore`). Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -20,10 +21,11 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / ".kernels_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_seconds = 0.0  # wall time of this process's build (0 when cached)
+build_log = ""  # the compilers' output of this process's build (ptxas registers, spills)
 
 
 def _nvcc() -> str:
@@ -51,17 +53,30 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the hashed shared library unless it exists."""
-    global build_seconds
+    global build_seconds, build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    stem = out.with_suffix(f".{os.getpid()}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    objs = [Path(f"{stem}.{src.stem}.o") for src in sources()]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = Path(f"{stem}.tmp.so")
+    ok = all(p.returncode == 0 for p in procs)
+    if ok:
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+        ok = link.returncode == 0
+    build_log = "\n".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if not ok:
+        raise RuntimeError(f"nvcc failed:\n{build_log}")
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
@@ -72,10 +87,11 @@ def load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fast_nms_launch.argtypes = [vp, vp, ci, ci, ci, vp]
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.fast_nms_launch.argtypes = [vp, vp, ci, cl, vp, ci, ci, vp]
         lib.fast_nms_launch.restype = ci
-        lib.gather_patches_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.gather_patches_launch.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci, vp, vp, ci, ci,
+                                              cl, vp, vp, ci, vp]
         lib.gather_patches_launch.restype = ci
         _lib = lib
     return _lib

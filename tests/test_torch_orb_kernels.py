@@ -1,9 +1,11 @@
 """Port parity: the ORB kernels of ops/orb/kernels.py against the JAX
 package, including both Pallas kernels run in interpret mode.
 
-On the CPU the port's wrappers `fast_nms` and `gather_patches` run their
-plain versions (the CUDA kernels are held bit-exact to those on the GPU by
-chip_smoke.py)."""
+On the CPU the port's wrappers (`fast_nms_pyramid`, `gather_pyramid_patches`
+and their one-level calls `fast_nms`, `gather_patches`) run their plain
+versions; the CUDA kernels are held bit-exact to those on the GPU by
+chip_smoke.py. The packed-pyramid cases use 4 levels whose widths are odd
+and not multiples of 4, so no level starts or ends on a 16-byte boundary."""
 
 import numpy as np
 import jax
@@ -86,3 +88,116 @@ def test_ic_mask_and_tap_table():
     mx, my = tk.ic_angle_mask()
     np.testing.assert_array_equal(ex.moment_masks.numpy(),
                                   np.stack([mx.reshape(-1), my.reshape(-1)], 1))
+
+
+SHAPES = [(83, 141), (69, 117), (58, 99), (48, 83)]
+
+
+def _packed(rng, integer, B=2):
+    """A packed (B, total) pyramid of independent random levels."""
+    layout = tk.PyramidLayout.of(SHAPES)
+    planes = [np.stack([_image(rng, h, w, integer) for _ in range(B)]) for h, w in SHAPES]
+    return layout, planes, np.concatenate([p.reshape(B, -1) for p in planes], 1)
+
+
+def test_pyramid_layout():
+    layout = tk.PyramidLayout.of(SHAPES)
+    assert layout.offsets == (0, 83 * 141, 83 * 141 + 69 * 117, 83 * 141 + 69 * 117 + 58 * 99)
+    assert layout.total == sum(h * w for h, w in SHAPES)
+    buf = torch.arange(2 * layout.total, dtype=torch.float32).reshape(2, -1)
+    views = layout.views(buf)
+    assert [tuple(v.shape) for v in views] == [(2, h, w) for h, w in SHAPES]
+    assert all(v[:1].is_contiguous() for v in views)  # each frame's level is one plane
+    assert float(views[2][1, 0, 0]) == layout.total + layout.offsets[2]
+
+
+@pytest.mark.parametrize("edge", [0, tk.EDGE])
+@pytest.mark.parametrize("integer", [True, False])
+def test_fast_nms_pyramid_matches_jax(rng, integer, edge):
+    """The plain pyramid version (the wrapper on the CPU) against the JAX
+    package's per-level nms3(fast_score_map), with the EDGE margin zeroed
+    as the JAX extractor zeroes it. Tolerance 0."""
+    layout, planes, buf = _packed(rng, integer)
+    out = tk.fast_nms_pyramid(torch.as_tensor(buf), layout, edge=edge)
+    np.testing.assert_array_equal(
+        out.numpy(), tk.fast_nms_pyramid_plain(torch.as_tensor(buf), layout, edge).numpy())
+    for got, plane, (h, w) in zip(layout.views(out), planes, SHAPES):
+        ref = np.asarray(jk.nms3(jk.fast_score_map(jnp.asarray(plane))))
+        border = np.zeros((h, w), np.float32)
+        border[edge:h - edge, edge:w - edge] = 1.0
+        np.testing.assert_array_equal(got.numpy(), ref * border)
+        one_level = tk.fast_nms(torch.as_tensor(plane), edge=edge).numpy()
+        np.testing.assert_array_equal(one_level, got.numpy())
+        assert (got.numpy() > 0).sum() > 10
+
+
+def _level_keypoints(rng, counts, lo, hi_y, hi_x, B=2):
+    """(B, N) int32 level-major centres: per level the 4 corners of the
+    allowed box [lo, hi_y(h)] x [lo, hi_x(w)], then random ones inside."""
+    ys, xs = [], []
+    for n, (h, w) in zip(counts, SHAPES):
+        y = rng.integers(lo, hi_y(h) + 1, (B, n))
+        x = rng.integers(lo, hi_x(w) + 1, (B, n))
+        y[:, :4] = [lo, lo, hi_y(h), hi_y(h)]
+        x[:, :4] = [lo, hi_x(w), lo, hi_x(w)]
+        ys.append(y)
+        xs.append(x)
+    return np.concatenate(ys, 1).astype(np.int32), np.concatenate(xs, 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_gather_pyramid_patches_matches_jax(rng, integer):
+    """Both patch sets of a packed pyramid against the JAX package's
+    jax.vmap(gather_patches) per level (radius 15 from the raw pyramid,
+    radius 19 from the blurred one, to_u8), with keypoints at the corners
+    of the in-bounds box (JAX's gather does not clamp). Tolerance 0."""
+    counts = [13, 9, 7, 5]
+    layout, raw_planes, raw = _packed(rng, integer)
+    _, blur_planes, blur = _packed(rng, integer)
+    r = tk.DESC_R
+    ys, xs = _level_keypoints(rng, counts, r, lambda h: h - r - 1, lambda w: w - r - 1)
+    T = torch.as_tensor
+    p31, p39 = tk.gather_pyramid_patches(T(raw), T(blur), layout, T(ys), T(xs), counts)
+    assert p31.dtype == torch.float32 and p39.dtype == torch.uint8
+    assert p31.shape == (2, sum(counts), 31, 31) and p39.shape == (2, sum(counts), 39, 39)
+    start = 0
+    vgather = jax.vmap(jk.gather_patches, in_axes=(0, 0, 0, None))
+    for n, rp, bp in zip(counts, raw_planes, blur_planes):
+        y, x = jnp.asarray(ys[:, start:start + n]), jnp.asarray(xs[:, start:start + n])
+        ref31 = np.asarray(vgather(jnp.asarray(rp), y, x, tk.HALF_PATCH))
+        ref39 = np.asarray(vgather(jnp.asarray(bp), y, x, r))
+        np.testing.assert_array_equal(p31[:, start:start + n].numpy(), ref31)
+        np.testing.assert_array_equal(p39[:, start:start + n].numpy(),
+                                      np.clip(ref39 + np.float32(0.5), 0, 255).astype(np.uint8))
+        start += n
+
+
+def test_gather_pyramid_patches_clamp_at_level_edges(rng):
+    """Keypoints on and next to each level's border: every patch coordinate
+    is clamped to the level, against a numpy gather of clamped indices."""
+    counts = [6, 5, 5, 4]
+    layout, raw_planes, raw = _packed(rng, False)
+    _, blur_planes, blur = _packed(rng, True)
+    ys, xs = _level_keypoints(rng, counts, 0, lambda h: h - 1, lambda w: w - 1)
+    T = torch.as_tensor
+    p31, p39 = tk.gather_pyramid_patches(T(raw), T(blur), layout, T(ys), T(xs), counts)
+
+    def ref(plane, y, x, radius):
+        off = np.arange(-radius, radius + 1)
+        rows = np.clip(y[..., None] + off, 0, plane.shape[1] - 1)
+        cols = np.clip(x[..., None] + off, 0, plane.shape[2] - 1)
+        b = np.arange(plane.shape[0])[:, None, None, None]
+        vals = plane[b, rows[:, :, :, None], cols[:, :, None, :]]
+        return np.asarray(jnp.asarray(vals).astype(jnp.bfloat16).astype(jnp.float32))
+
+    start = 0
+    for n, rp, bp in zip(counts, raw_planes, blur_planes):
+        y, x = ys[:, start:start + n], xs[:, start:start + n]
+        np.testing.assert_array_equal(p31[:, start:start + n].numpy(), ref(rp, y, x, tk.HALF_PATCH))
+        np.testing.assert_array_equal(
+            p39[:, start:start + n].numpy(),
+            np.clip(ref(bp, y, x, tk.DESC_R) + np.float32(0.5), 0, 255).astype(np.uint8))
+        np.testing.assert_array_equal(
+            tk.gather_patches(T(rp), T(np.ascontiguousarray(y)), T(np.ascontiguousarray(x)),
+                              tk.HALF_PATCH).numpy(), ref(rp, y, x, tk.HALF_PATCH))
+        start += n

@@ -12,7 +12,9 @@ runs the serial MonoSLAM on the GPU three times, measuring the frames after
      records every launch; post-processing tens of thousands of events a
      frame takes minutes): device kernel time, kernel launches per frame,
      the device busy share of the profiled wall time, and the top operators
-     by self CUDA and self CPU time;
+     by self CUDA and self CPU time; then over the ORB extraction of the
+     same frames alone: the extractor's device launches per frame, and the
+     launches of its two hand-written kernels (`launch_counts`);
   3. cProfile: cumulative host time of the port's own functions.
 Writes `summary.json`, `ops.txt` and `cprofile.txt` under --out and prints
 the summary. Needs a CUDA device.
@@ -36,6 +38,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM  # noqa: E402
+from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels  # noqa: E402
 from ceres_mono_orb_slam2_tpu_torch.utils.config import (  # noqa: E402
     CameraConfig, ORBConfig, SlamConfig, StaticShapes)
 from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import make_rendered_sequence  # noqa: E402
@@ -96,10 +99,20 @@ def main() -> int:
         for i in pw:
             _frame(slam, seq, i)
     prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(f"pass 2: {len(kernels) / len(pw):.0f} launches/frame, device "
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    print(f"pass 2: {len(dev_events) / len(pw):.0f} launches/frame, device "
           f"{dev_ms / len(pw):.2f} ms/frame of {prof_wall_ms / len(pw):.2f} ms profiled", flush=True)
+    # the extractor alone over the same frames
+    kernels.reset_launch_counts()
+    with torch.profiler.profile(activities=acts) as xprof:
+        for i in pw:
+            slam.extractor.extract(seq.images[i])
+        torch.cuda.synchronize()
+    x_launches = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in xprof.events())
+    orb_launches = {k: v / len(pw) for k, v in kernels.launch_counts.items()}
+    print(f"pass 2: extractor {x_launches / len(pw):.0f} device launches/frame, of which "
+          f"hand-written kernels {orb_launches}", flush=True)
     evs = prof.key_averages()
     dev_key = ("self_device_time_total" if hasattr(evs[0], "self_device_time_total")
                else "self_cuda_time_total")
@@ -133,7 +146,9 @@ def main() -> int:
         "frames_under_torch_profiler": len(pw),
         "profiled_wall_ms_per_frame": prof_wall_ms / len(pw),
         "device_kernel_ms_per_frame": dev_ms / len(pw),
-        "kernel_launches_per_frame": len(kernels) / len(pw),
+        "kernel_launches_per_frame": len(dev_events) / len(pw),
+        "extractor_launches_per_frame": x_launches / len(pw),
+        "orb_kernel_launches_per_frame": orb_launches,
         "device_busy_share_under_profiler": dev_ms / prof_wall_ms,
     }
     with open(os.path.join(args.out, "summary.json"), "w") as f:
