@@ -7,7 +7,7 @@ rBRIEF with the bit_pattern_31 table quantised to 30 rotation bins.
 
 The pyramid is built level by level into one packed (B, total) float32
 buffer (`kernels.PyramidLayout`: level l is the contiguous (H_l, W_l) plane
-at offset l of each row), with its 7x7-blurred, 8-bit-rounded copy in a
+at `offsets[l]` of each row), with its 7x7-blurred, 8-bit-rounded copy in a
 second buffer of the same layout. FAST+NMS then runs once over the whole
 packed pyramid and the patch gathers once over all levels and both patch
 sets: on a CUDA tensor one launch each of the kernels of `ops/orb/kernels.py`,

@@ -209,15 +209,15 @@ def fast_nms_pyramid(pyr: torch.Tensor, layout: PyramidLayout, edge: int = 0) ->
     return out
 
 
-def fast_nms(img: torch.Tensor, edge: int = 0) -> torch.Tensor:
+def fast_nms(img: torch.Tensor) -> torch.Tensor:
     """Fused FAST score + 3x3 NMS of one image plane: (B, H, W) float32 ->
     (B, H, W) float32, the one-level call of `fast_nms_pyramid` (plain:
-    nms3(fast_score_map(img)) with the `edge` margin zeroed)."""
+    nms3(fast_score_map(img)))."""
     if img.dim() != 3:
         raise ValueError(f"fast_nms: need (B, H, W), got {tuple(img.shape)}")
     B, H, W = img.shape
     layout = PyramidLayout.of([(H, W)])
-    return fast_nms_pyramid(img.reshape(B, H * W), layout, edge).view(B, H, W)
+    return fast_nms_pyramid(img.reshape(B, H * W), layout).view(B, H, W)
 
 
 def gaussian_blur7(img: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:

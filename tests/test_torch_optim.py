@@ -8,11 +8,11 @@ Tolerances, with their reasons:
   classifications are far from the gate).
 - bundle_adjustment at P=6, M=200, O=800: 1e-3 relative, since the Schur
   reductions sum in a different order (segment sums vs one-hot matmuls).
-- the deterministic normal-equation assembly against PR 1's `index_add_`
-  assembly: both sum the same k terms of a segment in different orders, and
-  each order is within (k - 1) u sum|x| of the exact sum (u the unit
-  roundoff, 2^-53 in f64 and 2^-24 in f32), so they differ by at most
-  (k - 1) 2u sum|x|; f64 is also held to 1e-12 sum|x|.
+- the deterministic normal-equation assembly against an `index_add_`
+  assembly (float atomics on CUDA): both sum the same k terms of a segment
+  in different orders, and each order is within (k - 1) u sum|x| of the
+  exact sum (u the unit roundoff, 2^-53 in f64 and 2^-24 in f32), so they
+  differ by at most (k - 1) 2u sum|x|; f64 is also held to 1e-12 sum|x|.
 - initialize_two_view: both sides get the same RANSAC noise, so they pick
   the same minimal sets and hypotheses; success flags equal and R21, t21
   within 1e-3 on a well-conditioned pair. The chosen pose is the raw 8-point
@@ -110,7 +110,8 @@ def test_bundle_adjustment_parity(rng):
 
 
 def _index_add_assembly(op, oj, A, B, r, w, P, M):
-    """The normal-equation assembly of PR 1 (float atomics on CUDA)."""
+    """The normal-equation assembly by index_add_ and accumulating
+    index_put_ (float atomics on CUDA), the reference."""
     wA, wB = w[:, None, None] * A, w[:, None, None] * B
     z = lambda *shape: torch.zeros(shape, dtype=A.dtype)  # noqa: E731
     return (z(P, 6, 6).index_add_(0, op, torch.einsum("oik,oil->okl", wA, A)),
