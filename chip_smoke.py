@@ -6,7 +6,7 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. build the CUDA kernels of `ceres_mono_orb_slam2_tpu_torch/csrc/` with
      nvcc (one process per source, started together) and print ptxas's
      register, shared-memory and spill lines; then measure the card's f32
-     min/max and FMA issue rates (`phase_device`);
+     min/max and FMA instruction throughputs (`phase_device`);
   2. hold each kernel bit-exact to its plain PyTorch version on packed
      pyramids: the 8-level KITTI 1241x376 pyramid at B=1 and B=8 and the
      8-level TUM 640x480 one at B=1, u8-valued and float pyramids, FAST
@@ -44,7 +44,7 @@ NMS_OPS = 8  # f32 max/compare of one suppression
 
 # 8 independent chains per thread of alternating fminf/fmaxf (or fmaf); the
 # + 0 * s (an FFMA, on another pipe) keeps max(b, min(a, b)) unfolded
-ISSUE_RATE_SOURCE = r"""
+THROUGHPUT_SOURCE = r"""
 #include <cuda_runtime.h>
 template <bool MINMAX>
 __global__ void chains(float* out, int iters, float s) {
@@ -123,19 +123,19 @@ def phase_build():
 
 
 def phase_device() -> float:
-    """The card's thread-level f32 min/max (FMNMX) and FMA (FFMA) issue
-    rates, 132 x 32 blocks of 256 threads over 4096 iterations, timed as
+    """The card's thread-level f32 min/max (FMNMX) and FMA (FFMA)
+    instruction throughputs, 132 x 32 blocks of 256 threads over 4096 iterations, timed as
     `time_ms` times kernels. The FAST scores of csrc/fast_nms.cu are ~114
     min/max each, so the first rate, not the data sheet's FMA rate, is their
-    ceiling. Returns the min/max rate (instructions/s)."""
+    ceiling. Returns the min/max throughput (instructions/s)."""
     import ctypes
 
     from ceres_mono_orb_slam2_tpu_torch.utils import cuda_build
 
-    src = cuda_build.BUILD_DIR / "issue_rate.cu"
-    lib_path = cuda_build.BUILD_DIR / "issue_rate.so"
+    src = cuda_build.BUILD_DIR / "throughput.cu"
+    lib_path = cuda_build.BUILD_DIR / "throughput.so"
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src.write_text(ISSUE_RATE_SOURCE)
+    src.write_text(THROUGHPUT_SOURCE)
     subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-shared", "-o", str(lib_path),
                     str(src)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
@@ -147,10 +147,10 @@ def phase_device() -> float:
         def launch():
             rc = lib.run(minmax, out.data_ptr(), blocks, iters, torch.cuda.current_stream().cuda_stream)
             if rc != 0:
-                raise RuntimeError(f"issue-rate kernel launch failed: cudaError {rc}")
+                raise RuntimeError(f"throughput kernel launch failed: cudaError {rc}")
         ms = time_ms(launch, calls=5, replays=3)
         rates[minmax] = blocks * 256 * iters * 16 / (ms * 1e-3)
-    log(f"[device] thread-level issue rate: f32 min/max {rates[1] / 1e12:.2f} T/s, "
+    log(f"[device] thread-level instruction throughput: f32 min/max {rates[1] / 1e12:.2f} T/s, "
         f"f32 FMA {rates[0] / 1e12:.2f} T/s")
     return rates[1]
 
@@ -238,7 +238,7 @@ def gather_work(layout, ys: torch.Tensor, xs: torch.Tensor, counts):
 def phase_kernels(seq, cfg, minmax_rate: float):
     """Bit-exact checks of both kernels on packed pyramids, then their
     main-path times on frame 0 (B=1), beside their bounds and, for fast_nms,
-    the time its f32 operations need at the measured min/max issue rate.
+    the time its f32 operations need at the measured min/max throughput.
     Returns the per-kernel JSON rows."""
     from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
     from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import ORBExtractor, _level_sizes
@@ -312,7 +312,7 @@ def phase_kernels(seq, cfg, minmax_rate: float):
             f"by {bound_by} ({work[0] / 1e6:.3f} MB, {work[1] / 1e9:.4f} GOP), share {bound_ms / ms:.3f}")
         if name == "fast_nms":
             ceiling_ms = work[1] / minmax_rate * 1e3
-            log(f"[kernels] fast_nms at the measured min/max issue rate: >= {ceiling_ms * 1e3:.2f} us, "
+            log(f"[kernels] fast_nms at the measured min/max throughput: >= {ceiling_ms * 1e3:.2f} us, "
                 f"share {ceiling_ms / ms:.3f}")
     return rows
 
