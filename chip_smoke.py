@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 H, W, N_FRAMES = 376, 1241, 60  # the KITTI-width spiral sequence
-# NVIDIA H100 SXM peaks (NVIDIA's data sheet; the on-chip-measurement guide)
+# NVIDIA H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 SCORE_OPS = 118  # f32 min/max/sub of one FAST score in csrc/fast_nms.cu
