@@ -7,9 +7,10 @@
 // zero_margin(nms3(fast_score_map(level)), edge) per level.
 //
 // What bounds it on an H100: bytes, closely followed by operations. A KITTI
-// frame (8 levels from 376x1241, 1,444,097 pixels) is 5.8 MB in and 5.8 MB
-// out, 3.4 us at 3.35 TB/s; the score below costs ~120 f32 min/max/sub a
-// pixel, ~2.6 us at the 67 TFLOP/s f32 rate. In practice the min/max
+// frame (8 levels from 376x1241, 1,444,097 pixels) with the extractor's
+// 19-px margin reads the 4.9 MB its scores need and writes 5.8 MB, 3.2 us
+// at 3.35 TB/s; the score below costs ~120 f32 min/max/sub a pixel, ~2.2 us
+// at the 67 TFLOP/s f32 rate for the pixels scored. In practice the min/max
 // instructions of the scores set its time (PERF.md). A launch per level
 // with 32x8 tiles (a 2.5x halo, a 33% score ring) and 16x8 independent mins
 // and maxes per score reached neither bound by far.

@@ -21,11 +21,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / ".kernels_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC"]
 
 _lib = None
 build_seconds = 0.0  # wall time of this process's build (0 when cached)
-build_log = ""  # the compilers' output of this process's build (ptxas registers, spills)
 
 
 def _nvcc() -> str:
@@ -53,7 +52,7 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the hashed shared library unless it exists."""
-    global build_seconds, build_log
+    global build_seconds
     out = library_path()
     if out.exists():
         return out
@@ -72,11 +71,10 @@ def build() -> Path:
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         logs.append(link.stdout)
         ok = link.returncode == 0
-    build_log = "\n".join(logs)
     for obj in objs:
         obj.unlink(missing_ok=True)
     if not ok:
-        raise RuntimeError(f"nvcc failed:\n{build_log}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

@@ -4,9 +4,7 @@
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build the CUDA kernels of `ceres_mono_orb_slam2_tpu_torch/csrc/` with
-     nvcc (one process per source, started together) and print ptxas's
-     register, shared-memory and spill lines; then measure the card's f32
-     min/max and FMA instruction throughputs (`phase_device`);
+     nvcc (one process per source, started together);
   2. hold each kernel bit-exact to its plain PyTorch version on packed
      pyramids: the 8-level KITTI 1241x376 pyramid at B=1 and B=8 and the
      8-level TUM 640x480 one at B=1, u8-valued and float pyramids, FAST
@@ -42,33 +40,6 @@ F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 SCORE_OPS = 118  # f32 min/max/sub of one FAST score in csrc/fast_nms.cu
 NMS_OPS = 8  # f32 max/compare of one suppression
 
-# 8 independent chains per thread of alternating fminf/fmaxf (or fmaf); the
-# + 0 * s (an FFMA, on another pipe) keeps max(b, min(a, b)) unfolded
-THROUGHPUT_SOURCE = r"""
-#include <cuda_runtime.h>
-template <bool MINMAX>
-__global__ void chains(float* out, int iters, float s) {
-  float a[8], b[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) { a[j] = threadIdx.x * 0.37f + j; b[j] = blockIdx.x * 0.11f - j; }
-  for (int i = 0; i < iters; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (MINMAX) { a[j] = fminf(a[j], b[j]); b[j] = fmaxf(b[j], a[j] + 0.0f * s); }
-      else { a[j] = fmaf(a[j], s, b[j]); b[j] = fmaf(b[j], s, a[j]); }
-    }
-  }
-  float r = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) r += a[j] + b[j];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = r;
-}
-extern "C" int run(int minmax, float* out, int blocks, int iters, void* stream) {
-  if (minmax) chains<true><<<blocks, 256, 0, (cudaStream_t)stream>>>(out, iters, 1.0f);
-  else chains<false><<<blocks, 256, 0, (cudaStream_t)stream>>>(out, iters, 0.999f);
-  return (int)cudaGetLastError();
-}
-"""
 TIMING_CALLS = 50  # fn() calls captured back to back in one CUDA graph
 TIMING_REPLAYS = 5
 
@@ -117,42 +88,6 @@ def phase_build():
     t0 = time.perf_counter()
     path = cuda_build.load()._name
     log(f"[build] {path} nvcc {cuda_build.build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s")
-    for line in cuda_build.build_log.splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
-
-
-def phase_device() -> float:
-    """The card's thread-level f32 min/max (FMNMX) and FMA (FFMA)
-    instruction throughputs, 132 x 32 blocks of 256 threads over 4096 iterations, timed as
-    `time_ms` times kernels. The FAST scores of csrc/fast_nms.cu are ~114
-    min/max each, so the first rate, not the data sheet's FMA rate, is their
-    ceiling. Returns the min/max throughput (instructions/s)."""
-    import ctypes
-
-    from ceres_mono_orb_slam2_tpu_torch.utils import cuda_build
-
-    src = cuda_build.BUILD_DIR / "throughput.cu"
-    lib_path = cuda_build.BUILD_DIR / "throughput.so"
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src.write_text(THROUGHPUT_SOURCE)
-    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-shared", "-o", str(lib_path),
-                    str(src)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    blocks, iters = 132 * 32, 4096
-    out = torch.empty(blocks * 256, device="cuda")
-    rates = {}
-    for minmax in (1, 0):
-        def launch():
-            rc = lib.run(minmax, out.data_ptr(), blocks, iters, torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"throughput kernel launch failed: cudaError {rc}")
-        ms = time_ms(launch, calls=5, replays=3)
-        rates[minmax] = blocks * 256 * iters * 16 / (ms * 1e-3)
-    log(f"[device] thread-level instruction throughput: f32 min/max {rates[1] / 1e12:.2f} T/s, "
-        f"f32 FMA {rates[0] / 1e12:.2f} T/s")
-    return rates[1]
 
 
 def slam_config():
@@ -205,14 +140,16 @@ def bound(n_bytes: float, n_ops: float):
 
 
 def fast_nms_work(layout, B: int, edge: int):
-    """(bytes, ops) of fast_nms_pyramid: the pyramid read once and the
-    suppressed scores written once; one FAST score for every pixel that an
-    output outside the margin reads (rows and columns edge-1 .. size-edge)
-    and one suppression for every such output."""
-    scored = sum(max(min(h, h - 2 * edge + 2), 0) * max(min(w, w - 2 * edge + 2), 0)
-                 for h, w in layout.shapes)
-    inner = sum(max(h - 2 * edge, 0) * max(w - 2 * edge, 0) for h, w in layout.shapes)
-    return 2 * 4 * B * layout.total, B * (SCORE_OPS * scored + NMS_OPS * inner)
+    """(bytes, ops) of fast_nms_pyramid with margin `edge`: one FAST score
+    for every pixel that an output outside the margin reads (rows and
+    columns edge-1 .. size-edge) and one suppression for every such output;
+    the pixels those scores read (edge-4 .. size-edge+3, every pixel at
+    edge 0) read once, and the whole output written once."""
+    def band(pad: int) -> int:  # pixels per frame within size - 2 * edge + pad
+        return sum(max(min(h, h - 2 * edge + pad), 0) * max(min(w, w - 2 * edge + pad), 0)
+                   for h, w in layout.shapes)
+
+    return 4 * B * (band(8) + layout.total), B * (SCORE_OPS * band(2) + NMS_OPS * band(0))
 
 
 def gather_work(layout, ys: torch.Tensor, xs: torch.Tensor, counts):
@@ -235,11 +172,10 @@ def gather_work(layout, ys: torch.Tensor, xs: torch.Tensor, counts):
     return 4 * covered + 8 * B * N + B * N * (4 * s31 + s39), B * N * (s31 + 4 * s39)
 
 
-def phase_kernels(seq, cfg, minmax_rate: float):
+def phase_kernels(seq, cfg):
     """Bit-exact checks of both kernels on packed pyramids, then their
-    main-path times on frame 0 (B=1), beside their bounds and, for fast_nms,
-    the time its f32 operations need at the measured min/max throughput.
-    Returns the per-kernel JSON rows."""
+    main-path times on frame 0 (B=1), beside their bounds. Returns the
+    per-kernel JSON rows."""
     from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
     from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import ORBExtractor, _level_sizes
     from ceres_mono_orb_slam2_tpu_torch.utils.config import ORBConfig
@@ -310,10 +246,6 @@ def phase_kernels(seq, cfg, minmax_rate: float):
         log(f"[kernels] {name}, frame 0 (B=1, 8 levels, {int(valid.sum())} keypoints): "
             f"{ms * 1e3:.2f} us per frame (plain {plain_ms * 1e3:.2f} us); bound {bound_ms * 1e3:.2f} us "
             f"by {bound_by} ({work[0] / 1e6:.3f} MB, {work[1] / 1e9:.4f} GOP), share {bound_ms / ms:.3f}")
-        if name == "fast_nms":
-            ceiling_ms = work[1] / minmax_rate * 1e3
-            log(f"[kernels] fast_nms at the measured min/max throughput: >= {ceiling_ms * 1e3:.2f} us, "
-                f"share {ceiling_ms / ms:.3f}")
     return rows
 
 
@@ -443,10 +375,9 @@ def main() -> int:
         return 1
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     phase_build()
-    minmax_rate = phase_device()
     cfg = slam_config()
     seq = render_sequence()
-    rows = phase_kernels(seq, cfg, minmax_rate)
+    rows = phase_kernels(seq, cfg)
     phase_ba()
     launches = phase_slam(seq, cfg)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
