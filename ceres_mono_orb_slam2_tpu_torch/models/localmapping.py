@@ -1,10 +1,11 @@
 """LocalMapping: map building around new keyframes (reference
 src/LocalMapping.cc), serial mode.
 
-Port of `ceres_mono_orb_slam2_tpu/models/localmapping.py` without a loop
-closer: process new keyframe -> cull recent map points -> triangulate new
+Port of `ceres_mono_orb_slam2_tpu/models/localmapping.py`: process new
+keyframe -> cull recent map points -> triangulate new
 points against covisible keyframes -> fuse duplicates -> local bundle
-adjustment -> cull redundant keyframes. Epipolar search, triangulation, fuse
+adjustment -> cull redundant keyframes -> hand the keyframe to the loop
+closer. Epipolar search, triangulation, fuse
 and local BA run on the device; graph bookkeeping stays on the host.
 """
 
@@ -16,24 +17,20 @@ import numpy as np
 import torch
 
 from ceres_mono_orb_slam2_tpu_torch.models.map import KeyFrame, Map
+from ceres_mono_orb_slam2_tpu_torch.models.optimization import DENSE_BA_MAX_BLOCKS
 from ceres_mono_orb_slam2_tpu_torch.ops import mapping_batch, matcher, optim
 from ceres_mono_orb_slam2_tpu_torch.ops.frustum import frustum_and_scale
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
-
-
-# the dense Schur's (M, P, 6, 3) cross tensor is the guard's measure, as in
-# the JAX package; past it the matrix-free CG solver is needed, which waits
-# for a later port
-_DENSE_BA_MAX_BLOCKS = 1 << 21
 
 
 class LocalMapping:
     # covisible window of CreateNewMapPoints (reference LocalMapping.cc:202)
     TRI_BATCH = 20
 
-    def __init__(self, config, map_: Map, device=DEFAULT_DEVICE):
+    def __init__(self, config, map_: Map, loop_closer=None, device=DEFAULT_DEVICE):
         self.config = config
         self.map = map_
+        self.loop_closer = loop_closer
         self.device = resolve_device(device)
         self.scale_factors = config.orb.scale_factors
         self.level_sigma2 = config.orb.level_sigma2
@@ -106,6 +103,8 @@ class LocalMapping:
             if self._pass_stale(kf, epoch):
                 return
             self._keyframe_culling(kf)
+        if self.loop_closer is not None:
+            self.loop_closer.insert_keyframe(kf.id)
 
     def _pass_stale(self, kf: KeyFrame, epoch: int) -> bool:
         """True if a reset or a cull invalidated this mapping pass."""
@@ -341,19 +340,25 @@ class LocalMapping:
             return
         kf_ids, kf_slot, mp_ids, oj_all, op_all, fixed, R, t, pts, ouv, ow = prep
         P, M = len(kf_ids), len(mp_ids)
-        if P * M > _DENSE_BA_MAX_BLOCKS:
-            raise NotImplementedError(
-                f"local BA window of {P} poses x {M} points needs the matrix-free CG "
-                "solver (bundle_adjustment_cg), which is not ported yet")
         d = self._dev
         args = (d(op_all.astype(np.int64)), d(oj_all.astype(np.int64)), d(ouv), d(ow),
                 torch.ones(len(op_all), dtype=torch.bool, device=self.device), d(fixed),
                 torch.ones(M, dtype=torch.bool, device=self.device))
-        res = optim.bundle_adjustment(self.jK, d(R), d(t), d(pts), *args,
-                                      iters_huber=5, iters_trimmed=5)
-        if not self.abort_ba:
-            res = optim.bundle_adjustment(self.jK, res.R, res.t, res.points, *args,
-                                          iters_huber=0, iters_trimmed=5)
+        if P * M > DENSE_BA_MAX_BLOCKS:
+            # past the dense Schur's (M, P, 6, 3) budget the matrix-free CG
+            # solver takes over (as in the JAX package), so a large window in
+            # a densely covisible revisited area cannot exhaust memory
+            res = optim.bundle_adjustment_cg(self.jK, d(R), d(t), d(pts), *args,
+                                             iters=8, cg_iters=50, robust=True)
+            if not self.abort_ba:
+                res = optim.bundle_adjustment_cg(self.jK, res.R, res.t, res.points, *args,
+                                                 iters=7, cg_iters=50, robust=True)
+        else:
+            res = optim.bundle_adjustment(self.jK, d(R), d(t), d(pts), *args,
+                                          iters_huber=5, iters_trimmed=5)
+            if not self.abort_ba:
+                res = optim.bundle_adjustment(self.jK, res.R, res.t, res.points, *args,
+                                              iters_huber=0, iters_trimmed=5)
         self.n_local_ba += 1
         Rn, tn, ptsn, inl = (a.cpu().numpy() for a in (res.R, res.t, res.points, res.inlier_obs))
         for k, i in kf_slot.items():

@@ -1,9 +1,10 @@
-"""System facade (reference src/MonoORBSlam.cc), serial and vocabulary-free.
+"""System facade (reference src/MonoORBSlam.cc), serial.
 
-Port of `ceres_mono_orb_slam2_tpu/models/system.py`: tracking then a drain
-of the local-mapping queue after every frame. Loop closing / relocalization
-(which need a vocabulary), the threaded mapper and pipelined tracking are
-later ports and raise NotImplementedError here.
+Port of `ceres_mono_orb_slam2_tpu/models/system.py`: tracking, then a drain
+of the local-mapping queue, then a drain of the loop-closing queue after
+every frame. With a vocabulary the facade builds the BoW keyframe database
+(relocalization) and the loop closer. The threaded mapper and pipelined
+tracking are later ports and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -29,8 +30,6 @@ class MonoSLAM:
 
     def __init__(self, config, device=DEFAULT_DEVICE, vocabulary=None, threaded: bool = False,
                  pipelined: bool = False, generator: Optional[torch.Generator] = None):
-        if vocabulary is not None:
-            raise NotImplementedError("loop closing / relocalization (vocabulary) is not ported yet")
         if threaded:
             raise NotImplementedError("the threaded mapper is not ported yet")
         if pipelined:
@@ -39,16 +38,54 @@ class MonoSLAM:
         self.device = resolve_device(device)
         self.map = Map()
         self.extractor = ORBExtractor(config.orb, device=self.device)
-        self.local_mapper = LocalMapping(config, self.map, device=self.device)
+        self.loop_closer = None
+        self.keyframe_db = None
+        if vocabulary is not None:
+            from ceres_mono_orb_slam2_tpu_torch.models.keyframe_database import KeyFrameDatabase
+            from ceres_mono_orb_slam2_tpu_torch.models.loopclosing import LoopClosing
+
+            self.keyframe_db = KeyFrameDatabase(vocabulary, self.map, device=self.device)
+            self.map.keyframe_db = self.keyframe_db
+            self.loop_closer = LoopClosing(config, self.map, self.keyframe_db, device=self.device)
+        self.local_mapper = LocalMapping(config, self.map, loop_closer=self.loop_closer,
+                                         device=self.device)
         self.tracker = Tracking(config, self.map, self.extractor, local_mapper=self.local_mapper,
-                                device=self.device, generator=generator)
+                                relocalizer=self.keyframe_db, device=self.device,
+                                generator=generator)
+        if self.loop_closer is not None:
+            self.loop_closer.local_mapper = self.local_mapper
+        self._last_big_change = 0
 
     def track_monocular(self, image: np.ndarray, timestamp: float):
         """Reference TrackMonocular (MonoORBSlam.cc:103-141): returns Tcw
         (4, 4) numpy or None."""
         Tcw = self.tracker.grab_image(image, timestamp)
         self.local_mapper.process_queue()
+        if self.loop_closer is not None:
+            self.loop_closer.process_queue()
         return Tcw
+
+    def reset(self):
+        with self.map.update_lock:
+            self.tracker.reset()
+
+    def shutdown(self):
+        """Drain the mapper, then the loop closer: a loop detectable on the
+        final keyframe must correct the map before the savers persist it."""
+        with self.map.update_lock:
+            self.local_mapper.process_queue()
+        if self.loop_closer is not None:
+            self.loop_closer.process_queue()
+
+    def map_changed(self) -> bool:
+        """Reference MonoORBSlam::MapChanged (MonoORBSlam.cc:143-151): true
+        once after each big map change (loop correction, global BA apply),
+        tracked against the map's big-change counter."""
+        cur = self.map.big_change_idx
+        if self._last_big_change < cur:
+            self._last_big_change = cur
+            return True
+        return False
 
     def get_tracking_state(self) -> str:
         return self.tracker.state.name

@@ -3,9 +3,10 @@
 Port of the serial path of `ceres_mono_orb_slam2_tpu/models/tracking.py`:
 monocular initialization, the motion model, reference-keyframe tracking,
 local-map tracking, the fused hot path (`models/fused_track`) against the
-device map pool, the keyframe decision and the trajectory log. Pipelined
-tracking and relocalization wait for later ports; without a relocalizer a
-lost frame stays lost, as in the JAX package with no vocabulary.
+device map pool, the keyframe decision, relocalization against a BoW
+keyframe database and the trajectory log. Pipelined tracking waits for a
+later port; without a relocalizer a lost frame stays lost, as in the JAX
+package with no vocabulary.
 """
 
 from __future__ import annotations
@@ -21,10 +22,15 @@ import torch
 
 from ceres_mono_orb_slam2_tpu_torch.models.frame import Frame, compute_image_bounds
 from ceres_mono_orb_slam2_tpu_torch.models.map import Map
-from ceres_mono_orb_slam2_tpu_torch.ops import frustum, matcher, optim, twoview
+from ceres_mono_orb_slam2_tpu_torch.ops import frustum, matcher, optim, pnp, twoview
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 log = logging.getLogger(__name__)
+
+# candidate cap of the batched relocalization PnP (the reference's
+# accumulator keeps about the top groups, KeyFrameDatabase.cc:280-310)
+RELOC_MAX_CANDIDATES = 8
+RELOC_HYPOTHESES = 256
 
 
 class State(enum.Enum):
@@ -35,12 +41,13 @@ class State(enum.Enum):
 
 
 class Tracking:
-    def __init__(self, config, map_: Map, extractor, local_mapper=None, device=DEFAULT_DEVICE,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, config, map_: Map, extractor, local_mapper=None, relocalizer=None,
+                 device=DEFAULT_DEVICE, generator: Optional[torch.Generator] = None):
         self.config = config
         self.map = map_
         self.extractor = extractor
         self.local_mapper = local_mapper
+        self.relocalizer = relocalizer  # optional: a KeyFrameDatabase
         self.device = resolve_device(device)
         cam = config.camera
         self.cam = cam
@@ -64,8 +71,9 @@ class Tracking:
         self.matches_inliers = 0
         self.max_frames = int(cam.fps)
         self.min_frames = 0
-        # RANSAC noise of the two-view initializer; `uniform_noise(shape)` may
-        # be replaced to inject draws (tests feed the JAX tracker's)
+        # RANSAC noise of the two-view initializer and of relocalization;
+        # `uniform_noise(shape)` may be replaced to inject draws (tests feed
+        # the JAX tracker's)
         self.generator = generator or torch.Generator(device=self.device).manual_seed(0)
         self.uniform_noise = self._draw_uniform
         # per-tracker frame sequence (the keyframe cadence gates count frames)
@@ -730,9 +738,118 @@ class Tracking:
         if self.local_mapper is not None:
             self.local_mapper.insert_keyframe(kf.id)
 
+    # ------------------------------------------------------------ relocalization
+
+    def _project_candidates(self, f: Frame, cand_mp, th: float, dist_th: int):
+        """Bind still-free keypoints of `f` to the candidate keyframe's map
+        points `cand_mp` by projection under f's pose (window `th`, Hamming
+        gate `dist_th`), skipping points the frame already holds."""
+        ga = np.asarray(cand_mp, np.int64)
+        Xc = self.map.mp_pos[ga] @ f.Rcw.T + f.tcw
+        zok = Xc[:, 2] > 1e-6
+        z = np.maximum(Xc[:, 2], 1e-6)
+        uvp = np.stack([self.cam.fx * Xc[:, 0] / z + self.cam.cx,
+                        self.cam.fy * Xc[:, 1] / z + self.cam.cy], -1).astype(np.float32)
+        already = set(int(m) for m in f.mp_ids if m >= 0)
+        fresh = np.array([m not in already for m in cand_mp])
+        M = len(cand_mp)
+        idx, _, valid = matcher.search_by_projection_frame(
+            f.j_und, f.j_octave, f.j_angle, f.j_bits, f.j_valid & self._dev(f.mp_ids < 0),
+            self._dev(uvp), torch.zeros(M, dtype=torch.int32, device=self.device),
+            torch.zeros(M, dtype=torch.float32, device=self.device),
+            matcher.unpack_u8(self.map.mp_desc[ga], self.device), self._dev(zok & fresh),
+            self.j_scale, th=th, check_rotation=False, dist_th=dist_th)
+        ii, vi = idx.cpu().numpy(), valid.cpu().numpy()
+        for q in np.nonzero(vi)[0]:
+            f.mp_ids[ii[q]] = cand_mp[q]
+
+    def _reloc_pose_optimize(self, f: Frame) -> int:
+        n_good = self._pose_optimize(f)
+        f.mp_ids[f.outlier] = -1
+        f.outlier[:] = False
+        return n_good
+
     def _relocalization(self) -> bool:
-        """Relocalization needs the BoW keyframe database, which is not
-        ported yet: with no relocalizer a lost frame stays lost."""
+        """Reference Relocalization (Tracking.cc:979-1137). Candidate
+        keyframes come from the BoW database; RANSAC runs over all
+        candidates in one batched call (the equivalent of the reference's
+        `iterate(5)` round-robin across solvers: no candidate goes deep
+        before every candidate has had its chance), then refinement visits
+        the candidates in descending inlier order."""
+        f = self.current
+        if self.relocalizer is None:
+            return False
+        cand_ids = self.relocalizer.detect_relocalization_candidates(f)
+        if not cand_ids:
+            return False
+        n = f.n_kp
+        built = []  # (kf, pos, ok, ids) per viable candidate
+        for kf_id in cand_ids:
+            kf = self.map.keyframes.get(kf_id)
+            if kf is None or kf.bad:
+                continue
+            kf_has_mp = (kf.mp_ids >= 0) & kf.kp_valid
+            idx, _, valid = matcher.search_by_descriptor(
+                f.j_angle, f.j_bits, f.j_valid, self._dev(kf.kp_angle),
+                matcher.unpack_u8(kf.desc, self.device), self._dev(kf_has_mp), ratio=0.75)
+            vi = valid.cpu().numpy()
+            if vi.sum() < 15:
+                continue
+            # 2D-3D sets aligned to the current frame's keypoints
+            pos = np.zeros((n, 3), np.float32)
+            ok = np.zeros(n, bool)
+            ids = np.full(n, -1, np.int64)
+            kidx = idx.cpu().numpy()
+            for q in np.nonzero(vi)[0]:
+                mp = self.map.get_mp(int(kf.mp_ids[kidx[q]]))
+                if mp is not None:
+                    pos[q] = mp.pos
+                    ok[q] = True
+                    ids[q] = mp.id
+            if ok.sum() >= 15:
+                built.append((kf, pos, ok, ids))
+        if not built:
+            return False
+
+        built = built[:RELOC_MAX_CANDIDATES]
+        C = len(built)
+        w = self.inv_sigma2[f.kp_octave].astype(np.float32)
+        noise = torch.as_tensor(self.uniform_noise((C, RELOC_HYPOTHESES, n)), device=self.device)
+        res = pnp.ransac_pnp_multi(
+            noise, self.jK, self._dev(np.stack([b[1] for b in built])),
+            f.j_und[None].expand(C, n, 2), self._dev(w)[None].expand(C, n),
+            self._dev(np.stack([b[2] for b in built])))
+        succ, Rs, ts, inls, ns = (a.cpu().numpy() for a in res)
+        for ci in np.argsort(-ns, kind="stable"):
+            if not succ[ci]:
+                continue
+            kf, pos, ok, ids = built[ci]
+            f.set_pose(Rs[ci], ts[ci])
+            inl = inls[ci]
+            f.mp_ids[:] = -1
+            f.mp_ids[inl] = ids[inl]
+            n_good = self._reloc_pose_optimize(f)
+            if n_good >= 50:
+                self.last_reloc_frame_id = f.id
+                return True
+            # widen with a projection search against this keyframe's map points
+            cand_mp = [int(m) for m in kf.mp_ids if m >= 0 and self.map.get_mp(int(m)) is not None]
+            if not cand_mp:
+                continue
+            self._project_candidates(f, cand_mp, th=10.0, dist_th=100)
+            n_good = self._reloc_pose_optimize(f)
+            if n_good >= 50:
+                self.last_reloc_frame_id = f.id
+                return True
+            # narrow second pass (Tracking.cc:1095-1116): if the wide pass got
+            # close (30 < nGood < 50), search again in a tight window (th=3)
+            # under a strict descriptor gate (64) around the refined pose
+            if 30 < n_good < 50:
+                self._project_candidates(f, cand_mp, th=3.0, dist_th=64)
+                n_good = self._reloc_pose_optimize(f)
+                if n_good >= 50:
+                    self.last_reloc_frame_id = f.id
+                    return True
         return False
 
     # ------------------------------------------------------------------ reset
@@ -742,6 +859,11 @@ class Tracking:
         self.map.clear()
         if self.local_mapper is not None:
             self.local_mapper.reset()
+            # the reference reset protocol drains the loop thread too
+            if self.local_mapper.loop_closer is not None:
+                self.local_mapper.loop_closer.reset()
+        if self.relocalizer is not None:
+            self.relocalizer.clear()
         self.state = State.NOT_INITIALIZED
         self.last_frame = None
         self.velocity = None

@@ -43,6 +43,22 @@ def hamming_matrix(bits_a: torch.Tensor, bits_b: torch.Tensor) -> torch.Tensor:
     return ((256.0 - dot) * 0.5).to(torch.int32)
 
 
+_POPCOUNT = {}
+
+
+def hamming_pairwise(desc_a_u8: torch.Tensor, desc_b_u8: torch.Tensor) -> torch.Tensor:
+    """Elementwise Hamming distance of aligned packed descriptors,
+    (..., 32) uint8 -> (...,) int32: a 256-entry population-count table
+    indexed by a ^ b (PyTorch has no population-count op), exact."""
+    dev = desc_a_u8.device
+    table = _POPCOUNT.get(dev)
+    if table is None:
+        byte = torch.arange(256, device=dev)
+        table = sum((byte >> i) & 1 for i in range(8)).to(torch.int32)
+        _POPCOUNT[dev] = table
+    return table[torch.bitwise_xor(desc_a_u8, desc_b_u8).long()].sum(-1, dtype=torch.int32)
+
+
 def masked_top2(dist: torch.Tensor, mask: torch.Tensor):
     """Per-row best and second best over the target axis; argmin returns the
     first minimal index. dist (Q, T) int32, mask (Q, T) bool."""

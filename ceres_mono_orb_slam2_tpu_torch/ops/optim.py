@@ -1,7 +1,10 @@
 """Levenberg-Marquardt optimizers, the Ceres Solver replacement.
 
 Port of `ceres_mono_orb_slam2_tpu/ops/optim.py`: motion-only pose
-optimization and bundle adjustment with a dense point-block Schur complement.
+optimization, bundle adjustment with a dense point-block Schur complement
+(`bundle_adjustment`, local windows) and with the point block eliminated
+implicitly and the pose system solved by conjugate gradients
+(`bundle_adjustment_cg`, any map size).
 Residuals and analytic Jacobians are batched over observations; the normal
 equations assemble with deterministic segment sums (`SegmentSum`), not the
 one-hot matmuls the TPU needed, whose (O, M) operand is 1 GB at the default
@@ -331,3 +334,126 @@ def bundle_adjustment(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigm
     s_final, _, Xc2 = chi2_of(R2, t2, pts2)
     inlier_obs = obs_valid & (s_final <= chi2_th) & (Xc2[..., 2] > 1e-6)
     return BAResult(R=R2, t=t2, points=pts2, inlier_obs=inlier_obs, cost=cost)
+
+
+def pcg(matvec, precond, b, iters: int):
+    """`iters` steps of preconditioned conjugate gradients on matvec(x) = b
+    from x = 0, with guarded denominators and no convergence test: a fixed
+    count keeps the host out of the loop."""
+    x = torch.zeros_like(b)
+    rr = b
+    p = precond(b)
+    rz = (rr * p).sum()
+    tiny = torch.full_like(rz, 1e-20)
+    for _ in range(iters):
+        Ap = matvec(p)
+        pAp = (p * Ap).sum()
+        alpha = rz / torch.where(pAp.abs() < 1e-20, tiny, pAp)
+        x = x + alpha * p
+        rr = rr - alpha * Ap
+        z = precond(rr)
+        rz_new = (rr * z).sum()
+        beta = rz_new / torch.where(rz.abs() < 1e-20, tiny, rz)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def bundle_adjustment_cg(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigma2,
+                         obs_valid, fixed_pose, point_valid, iters: int = 20,
+                         cg_iters: int = 50, chi2_th: float = CHI2_MONO,
+                         robust: bool = True) -> BAResult:
+    """Bundle adjustment at any map size: LM with the point block eliminated
+    implicitly. `bundle_adjustment` materializes the (M, P, 6, 3) pose-point
+    cross tensor, which suits local windows and is O(M P) memory for global
+    maps. Here every Schur product S v runs observation-wise (two gathers
+    and two segment sums over the O axis) and the reduced pose system is
+    solved by block-Jacobi preconditioned CG: memory O(P + M + O). Stands in
+    for the reference's BundleAdjustment at global scale, which relies on
+    Ceres' sparse Schur.
+
+    A fixed `iters` x `cg_iters` loop with accept/reject as `torch.where`
+    masks: no host read inside the solve. The per-pose and per-point sums use
+    `SegmentSum`s built once per call, so two calls give the same bits."""
+    P = R.shape[0]
+    M = points.shape[0]
+    dev, dt = R.device, R.dtype
+    delta = math.sqrt(chi2_th)
+    free6 = (~fixed_pose)[:, None]
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    op = obs_pose.long()
+    oj = obs_point.long()
+    by_pose, by_point = SegmentSum(op, P), SegmentSum(oj, M)
+
+    def chi2_of(Rp, tp, pts):
+        Xc = (Rp[op] @ pts[oj][..., None])[..., 0] + tp[op]
+        r = obs_uv - _project(K, Xc)
+        s = obs_inv_sigma2 * (r * r).sum(-1)
+        return torch.where(Xc[..., 2] <= 1e-6, torch.full_like(s, 1e6), s), r, Xc
+
+    def total_cost(Rp, tp, pts):
+        s, _, _ = chi2_of(Rp, tp, pts)
+        c = huber_cost(s, delta) if robust else s
+        return torch.where(obs_valid, c, torch.zeros_like(c)).sum()
+
+    Rp, tp, pts = R, t, points
+    cost = total_cost(Rp, tp, pts)
+    lam = torch.tensor(1e-4, dtype=dt, device=dev)
+    for _ in range(iters):
+        s, r, Xc = chi2_of(Rp, tp, pts)
+        w = obs_inv_sigma2 * (huber_weight(s, delta) if robust else 1.0)
+        w = torch.where(obs_valid & (Xc[..., 2] > 1e-6), w, torch.zeros_like(w))
+        Jp = _proj_jacobian(K, Xc)  # (O, 2, 3)
+        A = _pose_jacobian(Jp, Xc)  # (O, 2, 6)
+        B = -(Jp @ Rp[op])  # (O, 2, 3)
+        wA = w[:, None, None] * A
+        wB = w[:, None, None] * B
+        Hpp = by_pose(torch.einsum("oik,oil->okl", wA, A))
+        Hll = by_point(torch.einsum("oik,oil->okl", wB, B))
+        bp = by_pose(-torch.einsum("oik,oi->ok", wA, r))
+        bl = by_point(-torch.einsum("oik,oi->ok", wB, r))
+        Hll_d = Hll + lam * (Hll * eye3) + 1e-6 * eye3
+        Hpp_d = Hpp + lam * (Hpp * eye6) + 1e-6 * eye6
+        Hll_inv = torch.where(point_valid[:, None, None], _inv3x3(Hll_d),
+                              torch.zeros_like(Hll_d))
+
+        def WT_v(v):  # (P, 6) -> (M, 3): sum_o B^T w A v[p_o]
+            u = torch.einsum("oik,ok->oi", wA, v[op])  # (O, 2)
+            return by_point(torch.einsum("oik,oi->ok", B, u))
+
+        def W_x(x):  # (M, 3) -> (P, 6)
+            u = torch.einsum("oik,ok->oi", wB, x[oj])
+            return by_pose(torch.einsum("oik,oi->ok", A, u))
+
+        def S_v(v):  # implicit Schur matvec; fixed poses pinned to identity
+            v0 = torch.where(free6, v, torch.zeros_like(v))
+            out = torch.einsum("pij,pj->pi", Hpp_d, v0) - W_x(
+                torch.einsum("mij,mj->mi", Hll_inv, WT_v(v0)))
+            return torch.where(free6, out, v)
+
+        def precond(x):  # block-Jacobi: a 6x6 solve per pose
+            return torch.where(free6, _solve6_spd(Hpp_d, x), x)
+
+        rhs = bp - W_x(torch.einsum("mij,mj->mi", Hll_inv, bl))
+        rhs = torch.where(free6, rhs, torch.zeros_like(rhs))
+        dp = pcg(S_v, precond, rhs, cg_iters)
+        dp = torch.where(free6, dp, torch.zeros_like(dp))
+        dl = torch.einsum("mij,mj->mi", Hll_inv, bl - WT_v(dp))
+        dl = torch.where(point_valid[:, None], dl, torch.zeros_like(dl))
+
+        dRp, dtp = lie.se3_exp(dp)
+        R_new = lie.so3_project(dRp @ Rp)
+        t_new = (dRp @ tp[..., None])[..., 0] + dtp
+        pts_new = pts + dl
+        new_cost = total_cost(R_new, t_new, pts_new)
+        accept = new_cost < cost
+        Rp = torch.where(accept, R_new, Rp)
+        tp = torch.where(accept, t_new, tp)
+        pts = torch.where(accept, pts_new, pts)
+        lam = torch.where(accept, (lam * 0.33).clamp_min(1e-7), (lam * 5.0).clamp_max(1e6))
+        cost = torch.where(accept, new_cost, cost)
+    R2 = lie.so3_project(Rp)
+    s_final, _, Xc2 = chi2_of(R2, tp, pts)
+    inlier_obs = obs_valid & (s_final <= chi2_th) & (Xc2[..., 2] > 1e-6)
+    return BAResult(R=R2, t=tp, points=pts, inlier_obs=inlier_obs, cost=cost)

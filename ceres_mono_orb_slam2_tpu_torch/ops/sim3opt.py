@@ -1,0 +1,207 @@
+"""Sim(3) optimizers: two-view Sim(3) refinement and the essential graph.
+
+Port of `ceres_mono_orb_slam2_tpu/ops/sim3opt.py`, the equivalents of the
+reference's loop-closing optimizers:
+- OptimizeSim3 (analytic Sim3ErrorTerm): 7-dof LM on the relative Sim(3)
+  between two loop keyframes with both projection directions and
+  Huber(sqrt(10)).
+- OptimizeEssentialGraph (BCH-approximate Jacobians): pose graph over all
+  keyframes as Sim(3) elements, residual log(S_ji S_i S_j^-1). The normal
+  equations are solved matrix-free by block-Jacobi preconditioned conjugate
+  gradients; every H v product is two gathers and two segment sums over the
+  edge list.
+
+Both run a fixed number of iterations with accept/reject as `torch.where`
+masks: no host read inside a solve. Edge-to-vertex reductions use
+`ops/optim.SegmentSum`, built once per problem, so two solves of the same
+problem give the same bits on every device.
+
+Tangent order everywhere: (upsilon(3), omega(3), sigma), see ops/lie.py.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ceres_mono_orb_slam2_tpu_torch.ops import lie
+from ceres_mono_orb_slam2_tpu_torch.ops.optim import (
+    SegmentSum, _proj_jacobian, _project, huber_cost, huber_weight, pcg)
+
+
+class Sim3Result(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    s: torch.Tensor
+    inliers: torch.Tensor  # (N,) chi2 pass in both directions
+    n_inliers: torch.Tensor
+
+
+def optimize_sim3(
+    K1,
+    K2,
+    X1,  # (N, 3) matched points in the camera-1 frame
+    X2,  # (N, 3) matched points in the camera-2 frame
+    uv1,  # (N, 2) observed pixels in image 1 (matching X2 via S12)
+    uv2,  # (N, 2) observed pixels in image 2 (matching X1 via S12^-1)
+    inv_sigma1,  # (N,)
+    inv_sigma2,  # (N,)
+    valid,  # (N,)
+    R0,
+    t0,
+    s0,
+    max_iters: int = 15,
+    chi2_th: float = 10.0,
+) -> Sim3Result:
+    """Refine S12 (the camera-2 to camera-1 similarity) from matched
+    camera-frame points.
+
+    Residuals (Sim3ErrorTerm, both directions):
+      r1 = uv1 - proj(K1, S12 X2),  r2 = uv2 - proj(K2, S12^-1 X1)
+    Huber(sqrt(chi2_th)); LM on the 7-dof left increment.
+    """
+    delta = math.sqrt(chi2_th)
+    dev, dt = X1.device, X1.dtype
+    eye3 = torch.eye(3, dtype=dt, device=dev).expand(X1.shape[:-1] + (3, 3))
+    eye7 = torch.eye(7, dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def residuals(R, t, s):
+        q1 = s * (X2 @ R.T) + t  # S12 X2 in camera 1
+        Ri, ti, si = lie.sim3_inverse(R, t, s)
+        q2 = si * (X1 @ Ri.T) + ti  # S12^-1 X1 in camera 2
+        return uv1 - _project(K1, q1), uv2 - _project(K2, q2), q1, q2
+
+    def cost_fn(R, t, s):
+        r1, r2, _, _ = residuals(R, t, s)
+        c = (huber_cost(inv_sigma1 * (r1 * r1).sum(-1), delta)
+             + huber_cost(inv_sigma2 * (r2 * r2).sum(-1), delta))
+        return torch.where(valid, c, zero).sum()
+
+    s = torch.as_tensor(s0, dtype=dt, device=dev)
+    R = lie.so3_project(R0)
+    t = t0
+    cost = cost_fn(R, t, s)
+    lam = torch.tensor(1e-3, dtype=dt, device=dev)
+    for _ in range(max_iters):
+        r1, r2, q1, q2 = residuals(R, t, s)
+        s1 = inv_sigma1 * (r1 * r1).sum(-1)
+        s2 = inv_sigma2 * (r2 * r2).sum(-1)
+        w1 = torch.where(valid, inv_sigma1 * huber_weight(s1, delta), zero)
+        w2 = torch.where(valid, inv_sigma2 * huber_weight(s2, delta), zero)
+        # direction 1: q1 = exp(d) S12 X2 => dq1/dd = [I | -hat(q1) | q1]
+        D1 = torch.cat([eye3, -lie.hat(q1), q1[..., None]], dim=-1)  # (N, 3, 7)
+        J1 = -(_proj_jacobian(K1, q1) @ D1)  # (N, 2, 7), dr1/dd
+        # direction 2: q2 = (exp(d) S12)^-1 X1 = S12^-1 exp(-d) X1
+        # => dq2/dd = -s^-1 R^T [I | -hat(X1) | X1], dr2/dd = +Jp2 s^-1 R^T D2
+        D2 = torch.cat([eye3, -lie.hat(X1), X1[..., None]], dim=-1)
+        J2 = _proj_jacobian(K2, q2) @ ((1.0 / s) * R.T @ D2)
+        H = (torch.einsum("nik,n,nil->kl", J1, w1, J1)
+             + torch.einsum("nik,n,nil->kl", J2, w2, J2))
+        g = -(torch.einsum("nik,n,ni->k", J1, w1, r1) + torch.einsum("nik,n,ni->k", J2, w2, r2))
+        Hd = H + lam * torch.diag_embed(torch.diagonal(H)) + 1e-8 * eye7
+        dx = torch.linalg.solve(Hd, g)
+        # clamp the scale increment (Sim3Parameterization guards the scale
+        # from collapsing)
+        dx = torch.cat([dx[:6], dx[6:].clamp(-2.0, 2.0)])
+        dR, dtv, ds = lie.sim3_exp(dx)
+        R_new, t_new, s_new = lie.sim3_compose(dR, dtv, ds, R, t, s)
+        new_cost = cost_fn(R_new, t_new, s_new)
+        accept = new_cost < cost
+        R = torch.where(accept, R_new, R)
+        t = torch.where(accept, t_new, t)
+        s = torch.where(accept, s_new, s)
+        lam = torch.where(accept, (lam * 0.33).clamp_min(1e-7), (lam * 4.0).clamp_max(1e5))
+        cost = torch.where(accept, new_cost, cost)
+    R = lie.so3_project(R)
+    r1, r2, _, _ = residuals(R, t, s)
+    c1 = inv_sigma1 * (r1 * r1).sum(-1)
+    c2 = inv_sigma2 * (r2 * r2).sum(-1)
+    inliers = valid & (c1 <= chi2_th) & (c2 <= chi2_th)
+    return Sim3Result(R=R, t=t, s=s, inliers=inliers, n_inliers=inliers.sum(dtype=torch.int32))
+
+
+class EssentialGraphResult(NamedTuple):
+    R: torch.Tensor  # (P, 3, 3)
+    t: torch.Tensor  # (P, 3)
+    s: torch.Tensor  # (P,)
+    cost: torch.Tensor
+
+
+def _edge_residuals(R, t, s, ei, ej, Rm, tm, sm):
+    """r_e = log(S_ji S_i S_j^-1) for each edge (measurement S_ji)."""
+    Rji_i, tji_i, sji_i = lie.sim3_compose(Rm, tm, sm, R[ei], t[ei], s[ei])
+    Rjinv, tjinv, sjinv = lie.sim3_inverse(R[ej], t[ej], s[ej])
+    return lie.sim3_log(*lie.sim3_compose(Rji_i, tji_i, sji_i, Rjinv, tjinv, sjinv))  # (E, 7)
+
+
+def optimize_essential_graph(
+    R,  # (P, 3, 3) initial Sim(3) rotations (world -> camera, s R | t form)
+    t,  # (P, 3)
+    s,  # (P,)
+    edge_i,  # (E,) integer
+    edge_j,  # (E,) integer
+    Rm,  # (E, 3, 3) measured S_ji
+    tm,  # (E, 3)
+    sm,  # (E,)
+    edge_valid,  # (E,) bool
+    fixed,  # (P,) bool: at least the loop keyframe
+    gn_iters: int = 30,
+    cg_iters: int = 100,
+) -> EssentialGraphResult:
+    """Sim(3) pose-graph optimization, matrix-free PCG Gauss-Newton.
+
+    Jacobians use the reference's BCH approximation
+    (Jr^-1 ~ I + ad/2 + ad^2/12), with left increments S <- exp(d) S:
+      dr/ddelta_i =  Jl^-1(r) Adj(S_ji),   dr/ddelta_j = -Jr^-1(r)
+    """
+    P = R.shape[0]
+    dev, dt = R.device, R.dtype
+    ei, ej = edge_i.long(), edge_j.long()
+    free = (~fixed).to(dt)[:, None]
+    ew = edge_valid.to(dt)
+    eye7 = torch.eye(7, dtype=dt, device=dev)
+    # every edge lands on its two vertices: one segment sum over [i-ends, j-ends]
+    to_vertex = SegmentSum(torch.cat([ei, ej]), P)
+    Adj_m = lie.sim3_adjoint(Rm, tm, sm)
+
+    def cost_fn(R, t, s):
+        r = _edge_residuals(R, t, s, ei, ej, Rm, tm, sm)
+        return (ew * (r * r).sum(-1)).sum()
+
+    cost = cost_fn(R, t, s)
+    lam = torch.tensor(1e-4, dtype=dt, device=dev)
+    for _ in range(gn_iters):
+        r = _edge_residuals(R, t, s, ei, ej, Rm, tm, sm)  # (E, 7)
+        Ji = (lie.sim3_right_jacobian_inv_approx(-r) @ Adj_m) * ew[:, None, None]  # (E, 7, 7)
+        Jj = -lie.sim3_right_jacobian_inv_approx(r) * ew[:, None, None]
+        # gradient b = -J^T r, summed onto the vertices
+        b = to_vertex(torch.cat([-torch.einsum("eki,ek->ei", Ji, r),
+                                 -torch.einsum("eki,ek->ei", Jj, r)])) * free
+        # block diagonal of H: the Jacobi preconditioner and the damping
+        Hdiag = to_vertex(torch.cat([torch.einsum("eki,ekl->eil", Ji, Ji),
+                                     torch.einsum("eki,ekl->eil", Jj, Jj)]))
+        Hdamp = lam * (Hdiag * eye7)
+        Minv = torch.linalg.inv(Hdiag + Hdamp + 1e-6 * eye7)
+
+        def Hv(x):  # damped Gauss-Newton matvec, matrix-free over the edges
+            yi = torch.einsum("ekl,el->ek", Ji, x[ei]) + torch.einsum("ekl,el->ek", Jj, x[ej])
+            out = to_vertex(torch.cat([torch.einsum("eki,ek->ei", Ji, yi),
+                                       torch.einsum("eki,ek->ei", Jj, yi)]))
+            return (out + torch.einsum("pij,pj->pi", Hdamp, x) + 1e-6 * x) * free
+
+        dx = pcg(Hv, lambda v: torch.einsum("pij,pj->pi", Minv, v), b, cg_iters) * free
+        dR, dtv, ds = lie.sim3_exp(dx)
+        R_new = dR @ R
+        t_new = ds[:, None] * (dR @ t[..., None])[..., 0] + dtv
+        s_new = ds * s
+        new_cost = cost_fn(R_new, t_new, s_new)
+        accept = new_cost < cost
+        R = torch.where(accept, R_new, R)
+        t = torch.where(accept, t_new, t)
+        s = torch.where(accept, s_new, s)
+        lam = torch.where(accept, (lam * 0.33).clamp_min(1e-6), (lam * 4.0).clamp_max(1e4))
+        cost = torch.where(accept, new_cost, cost)
+    return EssentialGraphResult(R=lie.so3_project(R), t=t, s=s, cost=cost)

@@ -56,9 +56,30 @@ class _FrameShim:
         self.mp_ids = np.array(kf.mp_ids, np.int64)
 
 
+def vocabulary_from_reference(voc):
+    """A reference `Vocabulary` (a dataclass of numpy fields) as the port's."""
+    from ceres_mono_orb_slam2_tpu_torch.ops.bow import Vocabulary
+
+    return Vocabulary(**{f.name: (np.array(getattr(voc, f.name)) if isinstance(
+        getattr(voc, f.name), np.ndarray) else getattr(voc, f.name))
+        for f in dataclasses.fields(Vocabulary)})
+
+
+def database_from_reference(ref_db, voc, map_, device="cpu"):
+    """The port's KeyFrameDatabase over `map_` with a reference database's
+    inverted index (word id -> keyframe ids)."""
+    from ceres_mono_orb_slam2_tpu_torch.models.keyframe_database import KeyFrameDatabase
+
+    db = KeyFrameDatabase(voc, map_, device=device)
+    db.inverted = {int(w): set(ids) for w, ids in ref_db.inverted.items()}
+    map_.keyframe_db = db
+    return db
+
+
 def map_from_reference(ref) -> Map:
     """The port's Map holding a reference Map's state: keyframes (poses,
-    keypoint payloads, bindings, covisibility, spanning tree), map points
+    keypoint payloads, bindings, covisibility, spanning tree, loop edges, BoW
+    vectors), map points
     (positions, descriptors, normals, scale distances, observations,
     statistics, replacement links), id counters and the SoA tables."""
     m = Map()
@@ -79,6 +100,9 @@ def map_from_reference(ref) -> Map:
         kf.parent = rkf.parent
         kf.children = set(rkf.children)
         kf.bad = rkf.bad
+        kf.loop_edges = set(rkf.loop_edges)
+        kf.not_erase = rkf.not_erase
+        kf.bow_vec = None if rkf.bow_vec is None else dict(rkf.bow_vec)
         m.keyframes[kid] = kf
     for mid, rmp in ref.map_points.items():
         mp = MapPoint(mid, np.array(rmp.pos), np.array(rmp.descriptor), rmp.ref_kf_id)

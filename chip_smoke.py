@@ -17,7 +17,23 @@ Phases (each prints its own lines; any failure exits non-zero):
      world at 1241x376 with 2000 ORB features, asserting initialisation,
      tracking, mapping, exactly one launch of each kernel per frame and
      trajectory accuracy;
-  5. print the card's name and power limit.
+  5. `[bow]`: a 1,111,111-node (10^6-word) vocabulary on the card, frame 0's
+     descriptors through the tree on the card and on the CPU (equal word
+     ids and node paths), the transform's time; a small vocabulary trained,
+     written as ORBvoc text and parsed back;
+  6. `[solvers]`: batched P3P RANSAC over 8 candidates x 2000 points, Horn
+     Sim(3) RANSAC and refinement, the essential graph on a drifted ring of
+     200 poses, and the matrix-free CG bundle adjustment (against the dense
+     solver, and twice for bit-identical results), each on a seeded problem
+     with a known answer;
+  7. `[reloc]`: `MonoSLAM` with a trained vocabulary over 104 rendered
+     640x480 frames of the ring world with frames 44-46 blacked out: LOST,
+     then relocalized from pixels without a reset, one launch of each
+     kernel per frame;
+  8. `[loop]`: `MonoSLAM` with the geometric front end (2000 features a
+     frame) over a closed 72-frame circle, twice: loop detected, corrected,
+     essential graph and global BA run through the full system;
+  9. print the card's name and power limit.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs one CUDA device.
 """
@@ -25,8 +41,10 @@ last line is {"ok": true, "device": {...}}. Needs one CUDA device.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -34,6 +52,11 @@ import torch
 import torch.nn.functional as F
 
 H, W, N_FRAMES = 376, 1241, 60  # the KITTI-width spiral sequence
+TUM_H, TUM_W = 480, 640  # the relocalization and loop sequences
+RELOC_FRAMES, RELOC_BLACKOUT = 104, (44, 45, 46)  # circle, step 0.0635: 6.6 rad
+# revisit after ~63 frames; a view holds ~9% of the ring's landmarks, so 24000
+# of them fill the 2000 keypoints of a frame
+LOOP_FRAMES, LOOP_STEP, LOOP_LANDMARKS = 72, 0.1, 24000
 # NVIDIA H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -90,14 +113,14 @@ def phase_build():
     log(f"[build] {path} nvcc {cuda_build.build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s")
 
 
-def slam_config():
+def slam_config(h: int = H, w: int = W, max_local_points: int = 4096):
     from ceres_mono_orb_slam2_tpu_torch.utils.config import (
         CameraConfig, ORBConfig, SlamConfig, StaticShapes)
 
-    return SlamConfig(camera=CameraConfig(fx=500.0, fy=500.0, cx=W / 2.0, cy=H / 2.0, fps=30.0),
+    return SlamConfig(camera=CameraConfig(fx=500.0, fy=500.0, cx=w / 2.0, cy=h / 2.0, fps=30.0),
                       orb=ORBConfig(n_features=2000, n_levels=8, scale_factor=1.2,
                                     ini_th_fast=20, min_th_fast=7),
-                      shapes=StaticShapes(max_local_points=4096))
+                      shapes=StaticShapes(max_local_points=max_local_points))
 
 
 def random_pyramid(layout, B: int, integer: bool, g) -> torch.Tensor:
@@ -369,6 +392,410 @@ def phase_slam(seq, cfg):
     return launches
 
 
+def timed(fn):
+    """(result, ms) of fn(), on the host's clock around work that ends in a
+    device synchronisation."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def device_launches(fn):
+    """Device kernels and copies that one fn() call launches (torch.profiler,
+    CUDA activity only)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
+def phase_bow(seq, cfg):
+    """The BoW transform at the ORBvoc shape on the card against the CPU, and
+    the vocabulary's training and text round trip."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import bow
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import ORBExtractor
+
+    t0 = time.perf_counter()
+    voc = bow.synth_vocabulary(k=10, levels=6, seed=0)
+    if len(voc.node_desc) != 1_111_111 or voc.n_words != 1_000_000:
+        raise AssertionError(f"vocabulary shape {len(voc.node_desc)} nodes, {voc.n_words} words")
+    t_build = time.perf_counter() - t0
+    feats = ORBExtractor(cfg.orb, device="cuda").extract(seq.images[0])
+    desc, valid = feats.desc[0], feats.valid[0]
+    before = torch.cuda.memory_allocated()
+    on_card = bow.make_transform_fn(voc, device="cuda")
+    resident = torch.cuda.memory_allocated() - before
+    wid, path = on_card(desc, valid)
+    wid_h, path_h = bow.make_transform_fn(voc, device="cpu")(desc.cpu(), valid.cpu())
+    if not (torch.equal(wid.cpu(), wid_h) and torch.equal(path.cpu(), path_h)):
+        raise AssertionError("[bow] word ids or node paths differ between the card and the CPU")
+    n_valid = int(valid.sum())
+    if int((wid >= 0).sum()) != n_valid or int(wid.max()) >= voc.n_words:
+        raise AssertionError("[bow] word ids out of range")
+    for _ in range(3):
+        on_card(desc, valid)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(20):
+        on_card(desc, valid)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / 20
+    launches = device_launches(lambda: on_card(desc, valid))
+    log(f"[bow] {len(voc.node_desc)} nodes, {voc.n_words} words (built on the host in {t_build:.1f} s), "
+        f"{resident / 1e6:.1f} MB resident on the card; {desc.shape[0]} descriptors ({n_valid} valid), "
+        f"{len(set(wid_h[wid_h >= 0].tolist()))} distinct words: word ids and node paths "
+        f"(N, {path.shape[1]}) equal between card and CPU (torch.equal); transform "
+        f"{ms:.3f} ms per frame over 20 calls, {launches} launches")
+
+    # train, write as ORBvoc text, parse back
+    d = desc.cpu().numpy()[valid.cpu().numpy()]
+    t0 = time.perf_counter()
+    small = bow.train_vocabulary(d, k=6, levels=3, seed=0, docs=[d[::2], d[1::2]], device="cuda")
+    t_train = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path_txt = os.path.join(tmp, "voc.txt")
+        bow.dump_orbvoc_text(small, path_txt)
+        size = os.path.getsize(path_txt)
+        back = bow.parse_orbvoc_text(path_txt)
+    ones = np.ones(len(d), bool)
+    w0 = bow.make_transform_fn(small, device="cuda")(d, ones)[0].cpu().numpy()
+    w1 = bow.make_transform_fn(back, device="cuda")(d, ones)[0].cpu().numpy()
+    same = (back.n_words == small.n_words and back.k == small.k
+            and np.array_equal(small.node_desc[np.nonzero(small.is_leaf)[0][w0]],
+                               back.node_desc[np.nonzero(back.is_leaf)[0][w1]])
+            and np.allclose(small.word_weight[w0], back.word_weight[w1], rtol=1e-6))
+    log(f"[bow] train_vocabulary(k=6, levels=3) on {len(d)} descriptors: {len(small.node_desc)} nodes, "
+        f"{small.n_words} words in {t_train:.2f} s; ORBvoc text {size} bytes written and parsed back: "
+        f"every descriptor quantizes to the same leaf and weight: {same}")
+    if not same:
+        raise AssertionError("[bow] the vocabulary's text round trip changed the tree")
+
+
+def _rot(w):
+    from ceres_mono_orb_slam2_tpu_torch.ops import lie
+
+    return lie.so3_exp(torch.as_tensor(np.asarray(w, np.float32))).numpy()
+
+
+def _dev(a, dtype=None):
+    return torch.as_tensor(np.asarray(a, dtype), device="cuda")
+
+
+def solver_pnp(seed: int = 0, C: int = 8, N: int = 2000, NH: int = 256):
+    """ransac_pnp_multi: C candidates x N points; candidate 2 holds the true
+    3D points for 40% of its matches, the others hold unrelated points."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import pnp
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1]], np.float32)
+    R, t = _rot([0.1, -0.2, 0.05]), np.array([0.3, -0.1, 0.5], np.float32)
+    X = np.stack([rng.uniform(-4, 4, N), rng.uniform(-3, 3, N), rng.uniform(4, 10, N)], -1)
+    Xc = X @ R.T + t
+    uv = 500.0 * Xc[:, :2] / Xc[:, 2:] + K[:2, 2] + rng.standard_normal((N, 2)) * 0.5
+    Xs = rng.permutation(X)[None].repeat(C, 0) + rng.standard_normal((C, N, 3))
+    inlier = rng.random(N) < 0.4
+    Xs[2] = np.where(inlier[:, None], X, Xs[2])
+    args = (_dev(K), _dev(Xs, np.float32), _dev(uv, np.float32)[None].expand(C, N, 2),
+            _dev(rng.choice([1.0, 0.694, 0.482], N), np.float32)[None].expand(C, N),
+            torch.ones((C, N), dtype=torch.bool, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.rand((C, NH, N), device="cuda", generator=g)
+    run = lambda: pnp.ransac_pnp_multi(noise, *args)  # noqa: E731
+    run()
+    res, ms = timed(run)
+    best = int(res.n_inliers.argmax())
+    err_R = float(np.abs(res.R[best].cpu().numpy() - R).max())
+    err_t = float(np.abs(res.t[best].cpu().numpy() - t).max())
+    found = int((res.inliers[best].cpu().numpy() & inlier).sum())
+    log(f"[solvers] ransac_pnp_multi {C} candidates x {N} points x {NH} hypotheses (x4 P3P seeds): "
+        f"best candidate {best}, {int(res.n_inliers[best])} inliers ({found} of {int(inlier.sum())} true), "
+        f"|R - R*| {err_R:.2e}, |t - t*| {err_t:.2e}; {ms:.2f} ms, {device_launches(run)} launches")
+    if not (best == 2 and bool(res.success[2]) and found >= 0.9 * inlier.sum()
+            and err_R < 1e-2 and err_t < 5e-2 and int(res.success.sum()) == 1):
+        raise AssertionError("[solvers] ransac_pnp_multi did not find the true pose")
+
+
+def solver_sim3(seed: int = 1, N: int = 300, NH: int = 256):
+    """ransac_sim3 then optimize_sim3 on N matches, 30% of them wrong, of a
+    known similarity."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import lie, sim3opt, sim3solver
+
+    rng = np.random.default_rng(seed)
+    K = _dev([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1]], np.float32)
+    xi = torch.tensor([0.2, -0.1, 0.3, 0.05, -0.04, 0.08, float(np.log(1.3))])
+    R12, t12, s12 = (a.numpy() for a in lie.sim3_exp(xi))
+    X2 = np.stack([rng.uniform(-2, 2, N), rng.uniform(-1.5, 1.5, N), rng.uniform(4, 8, N)], -1)
+    X1 = s12 * X2 @ R12.T + t12
+    proj = lambda X: 500.0 * X[:, :2] / X[:, 2:] + np.array([320.0, 240.0])  # noqa: E731
+    uv1 = proj(X1) + rng.standard_normal((N, 2)) * 0.3
+    uv2 = proj(X2) + rng.standard_normal((N, 2)) * 0.3
+    bad = rng.random(N) < 0.3
+    X1[bad] = rng.permutation(X1)[bad] + rng.uniform(0.5, 1.0, (int(bad.sum()), 3))
+    args = tuple(_dev(a, np.float32) for a in (X1, X2, uv1, uv2, np.ones(N), np.ones(N)))
+    valid = torch.ones(N, dtype=torch.bool, device="cuda")
+    noise = torch.rand((NH, N), device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    ransac = lambda: sim3solver.ransac_sim3(noise, K, K, *args, valid)  # noqa: E731
+    ransac()
+    res, ms_r = timed(ransac)
+    refine = lambda: sim3opt.optimize_sim3(K, K, *args, res.inliers, res.R, res.t, res.s)  # noqa: E731
+    refine()
+    opt, ms_o = timed(refine)
+    err = float(torch.linalg.norm(lie.sim3_log(opt.R, opt.t, opt.s).cpu() - xi))
+    log(f"[solvers] ransac_sim3 {N} matches x {NH} hypotheses: {int(res.n_inliers)} inliers of "
+        f"{int((~bad).sum())} true, {ms_r:.2f} ms, {device_launches(ransac)} launches; optimize_sim3 "
+        f"(15 LM iterations): {int(opt.n_inliers)} inliers, |log(S) - xi*| {err:.2e}, s {float(opt.s):.4f} "
+        f"(true {s12:.4f}), {ms_o:.2f} ms, {device_launches(refine)} launches")
+    if not (bool(res.success) and err < 0.02 and int(opt.n_inliers) >= 0.9 * (~bad).sum()
+            and not bool((opt.inliers.cpu().numpy() & bad).any())):
+        raise AssertionError("[solvers] ransac_sim3 + optimize_sim3 did not recover the similarity")
+
+
+def drifted_ring(P: int, seed: int, radius: float = 5.0):
+    """A ring of P poses with exact odometry and one loop edge, and an
+    initialisation that integrates the odometry with noise and scale drift."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(P) / P
+    Rt = np.stack([_rot([0.0, a, 0.0]).T for a in ang]).astype(np.float64)
+    cw = np.stack([radius * np.sin(ang), np.zeros(P), radius * (1 - np.cos(ang))], -1)
+    tt = -np.einsum("pij,pj->pi", Rt, cw)
+    ei = np.arange(P)
+    ej = (ei + 1) % P
+    Rm = np.einsum("eij,ekj->eik", Rt[ej], Rt[ei])
+    tm = tt[ej] - np.einsum("eij,ej->ei", Rm, tt[ei])
+    R0, t0, s0 = [Rt[0]], [tt[0]], [1.0]
+    sig = np.array([0.004] * 3 + [0.002] * 3 + [0.003])
+    for k in range(P - 1):
+        dR, dt, ds = (a.double().numpy() for a in lie.sim3_exp(
+            torch.as_tensor((rng.standard_normal(7) * sig).astype(np.float32))))
+        Rk, tk = Rm[k] @ R0[k], Rm[k] @ t0[k] + tm[k]
+        R0.append(dR @ Rk), t0.append(ds * dR @ tk + dt), s0.append(ds * s0[k])
+    fixed = np.zeros(P, bool)
+    fixed[0] = True
+    return (Rt, tt), (np.array(R0), np.array(t0), np.array(s0), ei, ej, Rm, tm, np.ones(P), fixed)
+
+
+def solver_essential_graph(P: int = 200):
+    from ceres_mono_orb_slam2_tpu_torch.ops import sim3opt
+
+    (Rt, tt), (R0, t0, s0, ei, ej, Rm, tm, sm, fixed) = drifted_ring(P, seed=2)
+    args = (_dev(R0, np.float32), _dev(t0, np.float32), _dev(s0, np.float32), _dev(ei), _dev(ej),
+            _dev(Rm, np.float32), _dev(tm, np.float32), _dev(sm, np.float32),
+            torch.ones(P, dtype=torch.bool, device="cuda"), _dev(fixed))
+    centre = lambda R, t, s: -np.einsum("pji,pj->pi", R, t / s[:, None])  # noqa: E731
+    c_true, c0 = centre(Rt, tt, np.ones(P)), centre(R0, t0, s0)
+    gap0 = float(np.linalg.norm(c0[-1] - c0[0]) - np.linalg.norm(c_true[-1] - c_true[0]))
+    cost0 = float(sim3opt.optimize_essential_graph(*args, gn_iters=0).cost)
+    run = lambda: sim3opt.optimize_essential_graph(*args)  # noqa: E731
+    res, ms = timed(run)
+    again = run()
+    c1 = centre(*(a.cpu().numpy().astype(np.float64) for a in (res.R, res.t, res.s)))
+    gap1 = float(np.linalg.norm(c1[-1] - c1[0]) - np.linalg.norm(c_true[-1] - c_true[0]))
+    err0, err1 = float(np.abs(c0 - c_true).max()), float(np.abs(c1 - c_true).max())
+    same = all(torch.equal(a, b) for a, b in zip(res, again))
+    log(f"[solvers] optimize_essential_graph ring of {P} poses, {len(ei)} edges, 30 GN x 100 PCG: cost "
+        f"{cost0:.4e} -> {float(res.cost):.4e}, loop gap error {gap0:.4f} -> {gap1:.4f}, max centre error "
+        f"{err0:.4f} -> {err1:.4f} (radius 5); {ms:.1f} ms, {device_launches(run)} launches; "
+        f"two calls bit-identical: {same}")
+    if not (float(res.cost) < 1e-2 * cost0 and abs(gap1) < 0.1 * abs(gap0) and err1 < 0.25 * err0 and same):
+        raise AssertionError("[solvers] the essential graph did not close the ring")
+
+
+def solver_ba_cg():
+    """bundle_adjustment_cg on ba_problem(): the Huber cost of the dense
+    solver's solution within 1%, and two calls bit-identical."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import optim
+
+    args = ba_problem()
+    run = lambda: optim.bundle_adjustment_cg(*args, iters=20, cg_iters=50, robust=True)  # noqa: E731
+    run()
+    cg, ms = timed(run)
+    again = run()
+    dense, ms_dense = timed(lambda: optim.bundle_adjustment(*args, iters_huber=20, iters_trimmed=0))
+    # the dense solver reports its trimmed cost: a zero-iteration CG call
+    # evaluates the Huber cost of its solution
+    evaluate = lambda R, t, pts: float(optim.bundle_adjustment_cg(  # noqa: E731
+        args[0], R, t, pts, *args[4:], iters=0).cost)
+    c0, c_cg, c_dense = evaluate(*args[1:4]), float(cg.cost), evaluate(dense.R, dense.t, dense.points)
+    same = all(torch.equal(a, b) for a, b in zip(cg, again))
+    log(f"[solvers] bundle_adjustment_cg P={args[1].shape[0]} M={args[3].shape[0]} O={args[4].shape[0]}, "
+        f"20 LM x 50 CG: Huber cost {c0:.3f} -> {c_cg:.3f} (dense Schur solver: {c_dense:.3f}, "
+        f"{ms_dense:.1f} ms), inliers {int(cg.inlier_obs.sum())}; {ms:.1f} ms, "
+        f"{device_launches(run)} launches; two calls bit-identical: {same}")
+    if not same:
+        raise AssertionError("bundle_adjustment_cg is not deterministic on the card")
+    if not (c_cg < 0.5 * c0 and abs(c_cg - c_dense) <= 0.01 * c_dense):
+        raise AssertionError("[solvers] bundle_adjustment_cg does not reach the dense solver's cost")
+
+
+def phase_solvers():
+    for solver in (solver_pnp, solver_sim3, solver_essential_graph, solver_ba_cg):
+        solver()
+
+
+def trajectory_ate(slam, seq):
+    """ATE of the resolved trajectory (every tracked frame re-based on its
+    reference keyframe's final pose) in percent of its length."""
+    from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse
+
+    ts, est = slam.get_frame_trajectory()
+    frame_of = {float(t): k for k, t in enumerate(seq.timestamps)}
+    gt = np.stack([seq.gt_centers()[frame_of[float(t)]] for t in ts])
+    traj = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    return 100.0 * ate_rmse(est, gt) / traj, float(est.sum())
+
+
+def phase_reloc():
+    """Kidnap relocalization from pixels at TUM width: the ring world on a
+    circle, three black frames mid-ring, a vocabulary trained on the
+    sequence's own descriptors."""
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+    from ceres_mono_orb_slam2_tpu_torch.ops import bow
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import ORBExtractor
+    from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import make_rendered_sequence
+
+    t0 = time.perf_counter()
+    cfg = slam_config(TUM_H, TUM_W)
+    seq = make_rendered_sequence(RELOC_FRAMES, TUM_H, TUM_W, 500.0, 500.0, motion="circle",
+                                 step=0.0635, seed=11, device="cuda")
+    ex = ORBExtractor(cfg.orb, device="cuda")
+    corpus = []
+    for i in range(0, RELOC_FRAMES, 4):
+        fe = ex.extract(seq.images[i])
+        corpus.append(fe.desc[0][fe.valid[0]].cpu().numpy())
+    t1 = time.perf_counter()
+    voc = bow.train_vocabulary(np.concatenate(corpus), k=10, levels=4, seed=0, docs=corpus, device="cuda")
+    log(f"[reloc] rendered {RELOC_FRAMES} frames {TUM_W}x{TUM_H} and extracted {len(corpus)} of them in "
+        f"{t1 - t0:.1f} s; vocabulary (k=10, levels=4) of {voc.n_words} words trained on "
+        f"{sum(len(c) for c in corpus)} descriptors in {time.perf_counter() - t1:.1f} s")
+
+    images = seq.images.copy()
+    images[list(RELOC_BLACKOUT)] = 0.0  # kidnap: three black frames mid-ring
+    slam = MonoSLAM(cfg, vocabulary=voc, device="cuda")
+    k.reset_launch_counts()
+    states, frame_ms = [], []
+    for i in range(RELOC_FRAMES):
+        _, ms = timed(lambda: slam.track_monocular(images[i], float(seq.timestamps[i])))
+        frame_ms.append(ms)
+        states.append(slam.get_tracking_state())
+    launches = dict(k.launch_counts)
+    ate_pct, centre_sum = trajectory_ate(slam, seq)
+    slam.shutdown()
+    trk, lc = slam.tracker, slam.loop_closer
+    lost_at = states.index("LOST") if "LOST" in states else -1
+    # start of the last unbroken run of OK frames
+    recovered_at = next((i + 1 for i in reversed(range(RELOC_FRAMES)) if states[i] != "OK"), 0)
+    recovered_at = recovered_at if recovered_at < RELOC_FRAMES else -1
+    reloc_frames = [st["frame_id"] for st in trk.frame_stats if st["method"] == "reloc" and st["ok"]]
+    live = [kf for kf in slam.map.keyframes.values() if not kf.bad]
+    gap_th = max(12, len(live) // 2)
+    long_range = sum(1 for kf in live for nb in kf.covisible if kf.id - nb >= gap_th)
+    steady = np.asarray(frame_ms[10:])
+    log(f"[reloc] states {''.join(st[0] for st in states)}")
+    log(f"[reloc] LOST first at frame {lost_at}, OK without a break from frame {recovered_at}, "
+        f"{states.count('OK')}/{RELOC_FRAMES} frames OK, relocalized at frames {reloc_frames}, n_resets {trk.n_resets}, last_reloc_frame_id "
+        f"{trk.last_reloc_frame_id}; keyframes {slam.map.n_keyframes()}, map points "
+        f"{slam.map.n_map_points()}, launches {launches}")
+    log(f"[reloc] ATE of the resolved trajectory {ate_pct:.4f}% (repeat check: ATE {ate_pct!r} %, sum of "
+        f"camera centres {centre_sum!r}); not asserted: n_loops_closed {lc.n_loops_closed}, n_detects "
+        f"{lc.n_detects}, n_candidate_events {lc.n_candidate_events}, long-range covisibility edges "
+        f"{long_range}; per-frame ms (frames 10+): median {np.median(steady):.2f}, p95 "
+        f"{np.percentile(steady, 95):.2f}; relocalizing frames "
+        f"{[round(frame_ms[i], 1) for i in reloc_frames]} ms")
+    checks = {
+        "LOST within frames 44-49": "LOST" in states[44:50],
+        "OK again before the last five frames, and from then on": lost_at < recovered_at < RELOC_FRAMES - 5,
+        "n_resets == 0": trk.n_resets == 0,
+        "last_reloc_frame_id >= 0": trk.last_reloc_frame_id >= 0,
+        "fast_nms launched once per frame": launches["fast_nms"] == RELOC_FRAMES,
+        "gather_patches launched once per frame": launches["gather_patches"] == RELOC_FRAMES,
+        "ATE < 3.5% of trajectory": ate_pct < 3.5,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"reloc checks failed: {failed}")
+    return launches, RELOC_FRAMES
+
+
+def run_loop():
+    """One run of the closed geometric circle through the full system."""
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+    from ceres_mono_orb_slam2_tpu_torch.ops import bow
+    from ceres_mono_orb_slam2_tpu_torch.utils.geosim import (
+        GeoExtractor, GeoWorld, frame_image, make_geo_trajectory)
+    from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse
+
+    cfg = slam_config(TUM_H, TUM_W, max_local_points=16384)
+    n_feat = cfg.orb.n_features
+    Rcw, tcw = make_geo_trajectory(LOOP_FRAMES, "circle", LOOP_STEP)
+    world = GeoWorld(np.random.default_rng(0), LOOP_LANDMARKS, shape="ring")
+    voc = bow.train_vocabulary(world.desc[:4000], k=8, levels=3, seed=0, device="cuda")
+    slam = MonoSLAM(cfg, vocabulary=voc, device="cuda")
+    gx = slam.tracker.extractor = GeoExtractor(world, cfg.camera.K, Rcw, tcw, n_feat, TUM_H, TUM_W,
+                                               px_noise=0.3, bit_noise=2, seed=3, device="cuda")
+    gt_c = np.einsum("tij,tj->ti", Rcw.transpose(0, 2, 1), -tcw)
+    est, gt, frame_ms, changed = [], [], [], []
+    for i in range(LOOP_FRAMES):
+        T, ms = timed(lambda: slam.track_monocular(frame_image(i, TUM_H, TUM_W), i / 30.0))
+        frame_ms.append(ms)
+        changed.append(slam.map_changed())
+        if T is not None:
+            est.append(-T[:3, :3].T @ T[:3, 3])
+            gt.append(gt_c[i])
+    est, gt = np.stack(est), np.stack(gt)
+    traj = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    n_kp = np.mean([(s >= 0).sum() for s in gx.slot_lm_by_frame.values()])
+    return dict(slam=slam, state=slam.get_tracking_state(), tracked=len(est), frame_ms=frame_ms,
+                ate_pct=100.0 * ate_rmse(est, gt) / traj, centre_sum=float(est.sum()),
+                changed=changed, mean_keypoints=float(n_kp))
+
+
+def phase_loop():
+    """Loop closing through the full system with the geometric front end,
+    twice (the second run for the run-to-run fingerprint)."""
+    runs = []
+    for r in range(2):
+        run, ms = timed(run_loop)
+        runs.append(run)
+        slam = run["slam"]
+        lc = slam.loop_closer
+        log(f"[loop] run {r}: {LOOP_FRAMES} frames {TUM_W}x{TUM_H}, {run['mean_keypoints']:.0f} keypoints a "
+            f"frame of {LOOP_LANDMARKS} landmarks, in {ms / 1e3:.1f} s: state {run['state']}, tracked "
+            f"{run['tracked']}/{LOOP_FRAMES}, keyframes {slam.map.n_keyframes()}, map points "
+            f"{slam.map.n_map_points()}, n_loops_closed {lc.n_loops_closed}, n_gba_runs {lc.n_gba_runs}, "
+            f"n_detects {lc.n_detects}, ATE {run['ate_pct']:.4f}%, map_changed() true at frames "
+            f"{[i for i, c in enumerate(run['changed']) if c]}")
+        for st in lc.loop_stats:
+            log(f"[loop] run {r}: loop at keyframe {st['kf']} <-> {st['match_kf']}: Sim(3) RANSAC and "
+                f"refinement {st['sim3_ms']:.1f} ms, correction and fusion {st['correct_fuse_ms']:.1f} ms, "
+                f"essential graph {st['essential_graph_ms']:.1f} ms ({st['edges']} edges), global BA "
+                f"{st['gba_ms']:.1f} ms (P={st.get('P')} M={st.get('M')} O={st.get('O')}, "
+                f"{st.get('solver')} solver); frame of the closure "
+                f"{max(run['frame_ms']):.1f} ms, median frame {np.median(run['frame_ms'][10:]):.1f} ms")
+        log(f"[loop] run {r} repeat check: ATE {run['ate_pct']!r} %, sum of camera centres "
+            f"{run['centre_sum']!r}")
+        checks = {
+            "state OK at the end": run["state"] == "OK",
+            "at least 67 frames tracked": run["tracked"] >= LOOP_FRAMES - 5,
+            "n_loops_closed >= 1": lc.n_loops_closed >= 1,
+            "n_gba_runs >= 1": lc.n_gba_runs >= 1,
+            "ATE < 2% of trajectory": run["ate_pct"] < 2.0,
+            "map_changed() true once per big change, then false":
+                sum(run["changed"]) == lc.n_loops_closed and not slam.map_changed(),
+            "about 2000 keypoints a frame": run["mean_keypoints"] >= 1800,
+        }
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"loop checks failed (run {r}): {failed}")
+    same = (runs[0]["ate_pct"] == runs[1]["ate_pct"] and runs[0]["centre_sum"] == runs[1]["centre_sum"])
+    log(f"[loop] two runs bit-identical (ATE and sum of camera centres): {same}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -379,13 +806,21 @@ def main() -> int:
     seq = render_sequence()
     rows = phase_kernels(seq, cfg)
     phase_ba()
-    launches = phase_slam(seq, cfg)
+    paths = {"spiral": (phase_slam(seq, cfg), N_FRAMES)}
+    for name, phase in (("bow", lambda: phase_bow(seq, cfg)), ("solvers", phase_solvers),
+                        ("reloc", phase_reloc), ("loop", phase_loop)):
+        path, ms = timed(phase)
+        log(f"[{name}] phase took {ms / 1e3:.1f} s")
+        if path is not None:  # (launches, frames) of a path that extracts from pixels
+            paths[name] = path
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(smi.splitlines()[0])
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-        r["launches_per_frame"] = launches[r["name"]] / N_FRAMES
+    n_frames = sum(n for _, n in paths.values())
+    for r in rows:  # launches summed over every path that extracts from pixels
+        r["launches"] = sum(counts[r["name"]] for counts, _ in paths.values())
+        r["launches_per_frame"] = r["launches"] / n_frames
+        r["launches_by_path"] = {name: counts[r["name"]] for name, (counts, _) in paths.items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

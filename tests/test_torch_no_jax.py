@@ -34,6 +34,20 @@ f = ex.extract(np.random.default_rng(0).uniform(0, 255, (96, 128)).astype(np.flo
 assert f.xy.shape == (1, 200, 2)
 slam = MonoSLAM(SlamConfig(), device="cpu")
 assert slam.get_tracking_state() == "NO_IMAGES_YET"
+# the relocalization and loop-closing slice: vocabulary, database, loop closer
+from ceres_mono_orb_slam2_tpu_torch.ops import bow
+from ceres_mono_orb_slam2_tpu_torch.utils.geosim import GeoExtractor, GeoWorld, frame_image, make_geo_trajectory
+voc = bow.synth_vocabulary(k=3, levels=2, seed=0)
+slam = MonoSLAM(SlamConfig(), vocabulary=voc, device="cpu")
+assert slam.keyframe_db is not None and slam.loop_closer is not None
+assert slam.tracker.relocalizer is slam.keyframe_db
+assert slam.local_mapper.loop_closer is slam.loop_closer
+wid, path = slam.keyframe_db.transform(f.desc[0], f.valid[0])
+assert wid.shape == (200,) and path.shape == (200, 5) and int(wid.max()) < voc.n_words
+Rcw, tcw = make_geo_trajectory(3, "circle", 0.1)
+gx = GeoExtractor(GeoWorld(np.random.default_rng(0), 300, shape="ring"), SlamConfig().camera.K,
+                  Rcw, tcw, 100, 480, 640, device="cpu")
+assert gx.extract(frame_image(1)).xy.shape == (1, 100, 2)
 assert not any(name == "jax" or name.startswith("jax.") for name, mod in sys.modules.items()
                if mod is not None)
 print("OK")
@@ -82,3 +96,36 @@ def test_renderer_matches_jax(rng):
     assert new.shape == ref.shape == (3, h, w)
     np.testing.assert_allclose(new, ref, rtol=1e-4, atol=1e-3)
     assert ref.std() > 5.0  # a textured view, not background
+
+
+def test_slice_three_modules_exist_under_the_reference_names():
+    """Each module of the relocalization and loop-closing slice has its
+    counterpart in the port under the same name, with the same functions."""
+    names = {
+        "ops.lie": ["_sim3_W", "sim3_exp", "sim3_log", "sim3_inverse", "sim3_compose", "sim3_apply",
+                    "sim3_adjoint", "sim3_ad", "sim3_right_jacobian_inv_approx", "se3_log",
+                    "se3_to_matrix", "quat_to_rot"],
+        "ops.matcher": ["hamming_pairwise"],
+        "ops.bow": ["Vocabulary", "train_vocabulary", "seeded_vocabulary", "synth_vocabulary",
+                    "parse_orbvoc_text", "dump_orbvoc_text", "_vocabulary_from_raw",
+                    "make_transform_fn", "bow_vector", "l1_score"],
+        "models.keyframe_database": ["KeyFrameDatabase"],
+        "ops.pnp": ["_dlt_pose", "_p3p_pose", "ransac_pnp", "ransac_pnp_multi"],
+        "ops.sim3solver": ["horn_sim3", "ransac_sim3"],
+        "ops.sim3opt": ["optimize_sim3", "optimize_essential_graph"],
+        "ops.optim": ["bundle_adjustment_cg"],
+        "models.optimization": ["run_global_ba", "global_bundle_adjustment"],
+        "models.loopclosing": ["LoopClosing"],
+        "utils.geosim": ["GeoWorld", "make_geo_trajectory", "GeoExtractor", "frame_image"],
+        "utils.convert": ["vocabulary_from_reference", "database_from_reference", "map_from_reference"],
+    }
+    for mod, attrs in names.items():
+        tm = importlib.import_module(f"ceres_mono_orb_slam2_tpu_torch.{mod}")
+        missing = [a for a in attrs if not hasattr(tm, a)]
+        assert not missing, (mod, missing)
+        if mod != "utils.convert":
+            jm = importlib.import_module(f"ceres_mono_orb_slam2_tpu.{mod}")
+            assert all(hasattr(jm, a) for a in attrs), mod
+    from ceres_mono_orb_slam2_tpu_torch.models.tracking import Tracking
+
+    assert hasattr(Tracking, "_relocalization") and "relocalizer" in Tracking.__init__.__code__.co_varnames

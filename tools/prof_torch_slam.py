@@ -1,7 +1,7 @@
 """Where the port's per-frame time goes, on one CUDA device.
 
     python tools/prof_torch_slam.py [--frames 30] [--warmup 15] [--prof-frames 4]
-                                    [--out prof_out]
+                                    [--out prof_out] [--vocab]
 
 Renders the spiral ring world at 1241x376 (the chip_smoke.py sequence) and
 runs the serial MonoSLAM on the GPU three times, measuring the frames after
@@ -16,6 +16,10 @@ runs the serial MonoSLAM on the GPU three times, measuring the frames after
      same frames alone: the extractor's device launches per frame, and the
      launches of its two hand-written kernels (`launch_counts`);
   3. cProfile: cumulative host time of the port's own functions.
+With `--vocab` the system runs with a vocabulary trained on every fourth
+frame's descriptors (k=10, levels=4), so that the BoW transform and the loop
+closer's queue run on every keyframe; pass 1 then also reports the loop
+closer's share of a frame and the summary its counters.
 Writes `summary.json`, `ops.txt` and `cprofile.txt` under --out and prints
 the summary. Needs a CUDA device.
 """
@@ -51,14 +55,32 @@ def _config(h, w):
 
 
 def _frame(slam, seq, i):
-    """(tracking ms, mapping ms) of frame i, each ended by a device sync."""
+    """(tracking ms, mapping ms, loop-closing ms) of frame i, each ended by a
+    device sync; the last is 0 without a vocabulary."""
     t0 = time.perf_counter()
     slam.tracker.grab_image(seq.images[i], float(seq.timestamps[i]))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     slam.local_mapper.process_queue()
     torch.cuda.synchronize()
-    return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+    t2 = time.perf_counter()
+    if slam.loop_closer is not None:
+        slam.loop_closer.process_queue()
+        torch.cuda.synchronize()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3
+
+
+def _train_vocabulary(seq, cfg):
+    from ceres_mono_orb_slam2_tpu_torch.ops import bow
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import ORBExtractor
+
+    ex = ORBExtractor(cfg.orb, device="cuda")
+    corpus = []
+    for i in range(0, seq.n_frames, 4):
+        fe = ex.extract(seq.images[i])
+        corpus.append(fe.desc[0][fe.valid[0]].cpu().numpy())
+    return bow.train_vocabulary(np.concatenate(corpus), k=10, levels=4, seed=0, docs=corpus,
+                                device="cuda")
 
 
 def main() -> int:
@@ -67,6 +89,8 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=15)
     ap.add_argument("--prof-frames", type=int, default=4)
     ap.add_argument("--out", default="prof_out")
+    ap.add_argument("--vocab", action="store_true",
+                    help="run with a trained vocabulary (BoW database and loop closer)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("prof_torch_slam: no CUDA device", file=sys.stderr)
@@ -76,9 +100,10 @@ def main() -> int:
     seq = make_rendered_sequence(args.frames, h, w, 500.0, 500.0, motion="spiral", step=0.06,
                                  seed=11, device="cuda")
     window = range(args.warmup, args.frames)
+    voc = _train_vocabulary(seq, _config(h, w)) if args.vocab else None
 
     def fresh():
-        slam = MonoSLAM(_config(h, w), device="cuda")
+        slam = MonoSLAM(_config(h, w), vocabulary=voc, device="cuda")
         for i in range(args.warmup):
             _frame(slam, seq, i)
         return slam
@@ -88,7 +113,13 @@ def main() -> int:
     slam = fresh()
     split = np.asarray([_frame(slam, seq, i) for i in window])
     print(f"pass 1: frame ms median {np.median(split.sum(1)):.2f} (tracking "
-          f"{np.median(split[:, 0]):.2f}, mapping {np.median(split[:, 1]):.2f})", flush=True)
+          f"{np.median(split[:, 0]):.2f}, mapping {np.median(split[:, 1]):.2f}, loop closing mean "
+          f"{split[:, 2].mean():.2f})", flush=True)
+    loop_counters = None if slam.loop_closer is None else {
+        "n_detects": slam.loop_closer.n_detects,
+        "n_candidate_events": slam.loop_closer.n_candidate_events,
+        "n_loops_closed": slam.loop_closer.n_loops_closed,
+        "words_indexed": len(slam.keyframe_db.inverted)}
 
     # pass 2: torch.profiler over the start of the same window, fresh run
     slam = fresh()
@@ -143,6 +174,10 @@ def main() -> int:
         "tracking_ms_median": float(np.median(split[:, 0])),
         "mapping_ms_median": float(np.median(split[:, 1])),
         "mapping_ms_mean": float(split[:, 1].mean()),
+        "vocabulary_words": None if voc is None else voc.n_words,
+        "loop_closing_ms_mean": float(split[:, 2].mean()),
+        "loop_closing_ms_max": float(split[:, 2].max()),
+        "loop_closer": loop_counters,
         "frames_under_torch_profiler": len(pw),
         "profiled_wall_ms_per_frame": prof_wall_ms / len(pw),
         "device_kernel_ms_per_frame": dev_ms / len(pw),
