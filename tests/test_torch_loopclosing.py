@@ -76,10 +76,13 @@ def test_sim3_of_the_loop_matches(both):
     assert np.isfinite(float(to.s)) and float(to.s) > 0
 
 
-@pytest.mark.parametrize("with_gba", [True, False])
-def test_correct_loop_matches(both, with_gba, monkeypatch):
+@pytest.mark.parametrize("gba", ["dense", "cg", "none"])
+def test_correct_loop_matches(both, gba, monkeypatch):
     cfg, jm, tm, kf_mps, (Rg, tg), (_, jo), _ = both
     P = jm.n_keyframes()
+    with_gba = gba != "none"
+    if gba == "cg":  # the matrix-free global BA, forced in both packages
+        monkeypatch.setenv("CERES_TPU_GBA_CG", "1")
     if not with_gba:  # the essential graph alone must distribute the loop error
         import ceres_mono_orb_slam2_tpu.models.loopclosing as jlc_module
 
@@ -99,6 +102,7 @@ def test_correct_loop_matches(both, with_gba, monkeypatch):
     loop_points = {j: int(kf_mps[0][j]) for j in range(30)}
     jl._correct_loop(jm.keyframes[P - 1], 0, Scw, dict(loop_points), loop_ids)
     tl = tlc.LoopClosing(convert.config_from_reference(cfg), tm, keyframe_db=None, device="cpu")
+    tl.gba_force_cg = gba == "cg"
     tl._correct_loop(tm.keyframes[P - 1], 0, Scw, dict(loop_points), list(loop_ids))
 
     np.testing.assert_allclose(centres(tm), centres(jm), atol=1e-2 * RADIUS)
@@ -109,7 +113,7 @@ def test_correct_loop_matches(both, with_gba, monkeypatch):
     assert tm.big_change_idx == jm.big_change_idx
     assert tm.keyframes[P - 1].loop_edges == {0} and tm.keyframes[0].loop_edges == {P - 1}
     stat = tl.loop_stats[0]
-    assert stat["edges"] >= P and (not with_gba or stat["solver"] == "dense")
+    assert stat["edges"] >= P and (not with_gba or stat["solver"] == gba)
     # the reference test's asserts, on the port's map
     gap_after = np.linalg.norm(centres(tm)[P - 1] - centres(tm)[0])
     assert gap_after < 0.35 * gap_before, (gap_before, gap_after)
