@@ -1,6 +1,6 @@
 """Port parity of the BoW layer (ops/bow.py, models/keyframe_database.py).
 
-The vocabulary builders are numpy and copied: the same seed must give the
+The functions that construct a vocabulary are numpy and copied: the same seed must give the
 same tree, field by field, bit for bit. The tree descent runs in PyTorch:
 word ids and node paths must equal the JAX transform's exactly (Hamming
 distances are integers and both argmins take the first minimum).
