@@ -26,6 +26,9 @@ from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_
 
 
 class FusedOut(NamedTuple):
+    """Outputs of one fused step. With a leading stream axis on the inputs
+    every field carries it too: (S, ...) before the shapes below."""
+
     R: torch.Tensor  # (3,3) final pose
     t: torch.Tensor  # (3,)
     und: torch.Tensor  # (N,2) undistorted current keypoints
@@ -44,13 +47,18 @@ class FusedOut(NamedTuple):
     ok_next: torch.Tensor  # (N,) inlier-bound slots (the next frame's last_ok)
     next_local_row: torch.Tensor  # (N,) local-block row of the bound point (-1 none)
 
+    def stream(self, s: int) -> "FusedOut":
+        """Stream s of a batched result (views, no copy)."""
+        return FusedOut(*(a[s] for a in self))
+
 
 CTL_HEADER = 15  # R+t (12) + 3 counters
 
 
 def pack_control(out: FusedOut, feats_valid: torch.Tensor) -> torch.Tensor:
     """Every host-bound control output in ONE int32 tensor (one device to
-    host copy per frame). Layout:
+    host copy per frame, or per batch of frames: a batched `out` packs to
+    (S, 15 + N + L)). Layout:
       [0:12]        R (9) + t (3), f32 bit pattern
       [12:15]       n1_matches, n1_inliers, n2_inliers
       [15:15+N]     per keypoint: m1_idx | m1_valid<<16 | inl1<<17
@@ -62,14 +70,15 @@ def pack_control(out: FusedOut, feats_valid: torch.Tensor) -> torch.Tensor:
           | (out.assoc.to(i32) << 18) | (out.inl2.to(i32) << 19)
           | (feats_valid.to(i32) << 20))
     loc = out.m2_idx.to(i32) | (out.m2_valid.to(i32) << 16) | (out.visible.to(i32) << 17)
-    hdr = torch.cat([out.R.reshape(-1), out.t]).to(torch.float32).view(i32)
-    cnt = torch.stack([out.n1_matches, out.n1_inliers, out.n2_inliers]).to(i32)
-    return torch.cat([hdr, cnt, kp, loc])
+    hdr = torch.cat([out.R.reshape(out.t.shape[:-1] + (9,)), out.t], -1).to(torch.float32).view(i32)
+    cnt = torch.stack([out.n1_matches, out.n1_inliers, out.n2_inliers], -1).to(i32)
+    return torch.cat([hdr, cnt, kp, loc], -1)
 
 
 def unpack_control(packed: np.ndarray, L: int):
-    """Host inverse of pack_control: (R, t, m1_idx, m1_valid, inl1, n1,
-    ninl1, m2_idx, m2_valid, visible, assoc, inl2, ninl2, feats_valid)."""
+    """Host inverse of pack_control for one frame: (R, t, m1_idx, m1_valid,
+    inl1, n1, ninl1, m2_idx, m2_valid, visible, assoc, inl2, ninl2,
+    feats_valid)."""
     hdr = packed[:12].view(np.float32)
     R = hdr[:9].reshape(3, 3).copy()
     t = hdr[9:12].copy()
@@ -83,17 +92,25 @@ def unpack_control(packed: np.ndarray, L: int):
 
 
 def _scatter_rows(n: int, idx_safe: torch.Tensor, src: torch.Tensor, fill):
-    """out[idx_safe[i]] = src[i] into an (n + 1)-row buffer whose last row
-    absorbs invalid entries (idx_safe == n); returns the first n rows."""
-    out = torch.full((n + 1,) + tuple(src.shape[1:]), fill, dtype=src.dtype, device=src.device)
-    out[idx_safe] = src
-    return out[:n]
+    """out[..., idx_safe[..., i], :] = src[..., i, :] into a buffer of n + 1
+    rows whose last row absorbs invalid entries (idx_safe == n); returns the
+    first n rows. idx_safe is (..., Q) and src (..., Q) or (..., Q, C); valid
+    entries of one leading index name distinct rows."""
+    row_dim = idx_safe.dim() - 1
+    trail = tuple(src.shape[idx_safe.dim():])
+    out = torch.full(tuple(idx_safe.shape[:-1]) + (n + 1,) + trail, fill,
+                     dtype=src.dtype, device=src.device)
+    idx = idx_safe.reshape(idx_safe.shape + (1,) * len(trail)).expand(src.shape)
+    out.scatter_(row_dim, idx, src)
+    return out.narrow(row_dim, 0, n)
 
 
 class FusedStep(nn.Module):
     """The fused step for one camera/ORB configuration; call it with the
     current frame's features, the last frame's, the motion prediction and
-    the local-map block (see `forward`)."""
+    the local-map block (see `forward`). Every per-frame argument may carry
+    one leading stream axis: S frames of S independent streams then go
+    through the same launches, each stream with its own pose solves."""
 
     def __init__(self, config, device=DEFAULT_DEVICE):
         super().__init__()
@@ -111,35 +128,16 @@ class FusedStep(nn.Module):
     def _match_motion(self, d, und, cur_oct, cur_angle, cur_valid, last_oct, last_angle,
                       pr_uv, pr_ok, th):
         """SearchByProjection against the last frame for one window width;
-        `d` is the shared (N, N) Hamming matrix."""
+        `d` is the shared (..., N, N) Hamming matrix."""
         r = th * self.scales[last_oct]
-        du = (pr_uv[:, 0:1] - und[None, :, 0]).abs()
-        dv = (pr_uv[:, 1:2] - und[None, :, 1]).abs()
-        in_w = (du <= r[:, None]) & (dv <= r[:, None])
-        lvl = (cur_oct[None, :] >= last_oct[:, None] - 1) & (cur_oct[None, :] <= last_oct[:, None] + 1)
-        mask = in_w & lvl & cur_valid[None, :] & pr_ok[:, None]
+        _, _, in_w = matcher._window(pr_uv, und, r)
+        oct_c, oct_l = cur_oct[..., None, :], last_oct[..., None]
+        lvl = (oct_c >= oct_l - 1) & (oct_c <= oct_l + 1)
+        mask = in_w & lvl & cur_valid[..., None, :] & pr_ok[..., None]
         best_val, best_idx, _, _ = matcher.masked_top2(d, mask)
         valid = pr_ok & (best_val <= matcher.TH_HIGH)
-        valid = matcher.rotation_consistency_mask(last_angle, cur_angle[best_idx], valid)
-        valid = matcher.resolve_duplicate_targets(best_idx, best_val, valid, und.shape[0])
-        return best_idx, valid
-
-    def _match_local(self, und, cur_oct, cur_bits, cur_valid, kp_free, uv, level, viewcos,
-                     l_bits, cand_ok, th):
-        """SearchByProjection overload #1 with a tensor radius multiplier
-        (widened to 5 right after a relocalization)."""
-        r = matcher.radius_by_viewing_cos(viewcos) * th * self.scales[level]
-        du = (uv[:, 0:1] - und[None, :, 0]).abs()
-        dv = (uv[:, 1:2] - und[None, :, 1]).abs()
-        in_w = (du <= r[:, None]) & (dv <= r[:, None])
-        lvl = (cur_oct[None, :] >= level[:, None] - 1) & (cur_oct[None, :] <= level[:, None])
-        mask = in_w & lvl & cur_valid[None, :] & kp_free[None, :] & cand_ok[:, None]
-        d = matcher.hamming_matrix(l_bits, cur_bits)
-        best_val, best_idx, second_val, second_idx = matcher.masked_top2(d, mask)
-        ratio_ok = (cur_oct[best_idx] != cur_oct[second_idx]) | (
-            best_val.float() <= 0.8 * second_val.float())
-        valid = cand_ok & (best_val <= matcher.TH_HIGH) & ratio_ok
-        valid = matcher.resolve_duplicate_targets(best_idx, best_val, valid, und.shape[0])
+        valid = matcher.rotation_consistency_mask(last_angle, cur_angle.gather(-1, best_idx), valid)
+        valid = matcher.resolve_duplicate_targets(best_idx, best_val, valid, und.shape[-2])
         return best_idx, valid
 
     @torch.no_grad()
@@ -147,29 +145,34 @@ class FusedStep(nn.Module):
                 last_oct, last_angle, last_desc, last_pos, last_ok, last_local_row,
                 R_pred, t_pred, l_pos, l_normal, l_mind, l_maxd, l_desc, l_valid,
                 bounds, th_local) -> FusedOut:
+        """`th_local` is a number, or with a stream axis an (S,) tensor;
+        `bounds` (4,) is shared by all streams."""
         K = self.K
-        N = cur_xy.shape[0]
-        L = l_pos.shape[0]
+        N = cur_xy.shape[-2]
+        L = l_pos.shape[-2]
+        if torch.is_tensor(th_local):
+            th_local = th_local[..., None]
         und = camera.undistort_points(cur_xy, K, self.dist) if self.has_distortion else cur_xy
         cur_bits = matcher.unpack_bits_pm1(cur_desc)
         w = self.inv_sigma2[cur_oct]
 
         # ---- stage 1: motion-model projection match + pose solve ----------
-        Xc = last_pos @ R_pred.T + t_pred
-        z = Xc[:, 2].clamp_min(1e-6)
-        pr_uv = torch.stack([K[0, 0] * Xc[:, 0] / z + K[0, 2],
-                             K[1, 1] * Xc[:, 1] / z + K[1, 2]], -1)
-        pr_ok = last_ok & (Xc[:, 2] > 0)
+        Xc = last_pos @ R_pred.transpose(-1, -2) + t_pred[..., None, :]
+        z = Xc[..., 2].clamp_min(1e-6)
+        pr_uv = torch.stack([K[0, 0] * Xc[..., 0] / z + K[0, 2],
+                             K[1, 1] * Xc[..., 1] / z + K[1, 2]], -1)
+        pr_ok = last_ok & (Xc[..., 2] > 0)
         d1 = matcher.hamming_matrix(matcher.unpack_bits_pm1(last_desc), cur_bits)
         i15, v15 = self._match_motion(d1, und, cur_oct, cur_angle, cur_valid,
                                       last_oct, last_angle, pr_uv, pr_ok, 15.0)
         i30, v30 = self._match_motion(d1, und, cur_oct, cur_angle, cur_valid,
                                       last_oct, last_angle, pr_uv, pr_ok, 30.0)
-        n15 = v15.to(torch.int32).sum()
+        del d1
+        n15 = v15.to(torch.int32).sum(-1)
         use15 = n15 >= 20  # the retry-wider gate
-        m1_idx = torch.where(use15, i15, i30)
-        m1_valid = torch.where(use15, v15, v30)
-        n1 = torch.where(use15, n15, v30.to(torch.int32).sum())
+        m1_idx = torch.where(use15[..., None], i15, i30)
+        m1_valid = torch.where(use15[..., None], v15, v30)
+        n1 = torch.where(use15, n15, v30.to(torch.int32).sum(-1))
 
         safe1 = torch.where(m1_valid, m1_idx, N)
         pos1 = _scatter_rows(N, safe1, last_pos, 0.0)
@@ -183,19 +186,21 @@ class FusedStep(nn.Module):
             res1.R, res1.t, K, bounds, l_pos, l_normal, l_mind, l_maxd, l_valid,
             self.log_scale, self.n_levels)
         # exclude local rows whose point is already bound through stage 1
-        bound_last = m1_valid & inl1[m1_idx]
+        bound_last = m1_valid & inl1.gather(-1, m1_idx)
         rr = torch.where(bound_last & (last_local_row >= 0), last_local_row.long(), L)
         excl = _scatter_rows(L, rr, torch.ones_like(rr, dtype=torch.bool), False)
         cand_ok = visible & ~excl
         kp_free = cur_valid & ~bound1
-        m2_idx, m2_valid = self._match_local(
+        # SearchByProjection overload #1; th_local widens the radius to 5
+        # right after a relocalization
+        m2_idx, _, m2_valid = matcher.search_by_projection_points(
             und, cur_oct, cur_bits, cur_valid, kp_free, uv2, level2, viewcos2,
-            matcher.unpack_bits_pm1(l_desc), cand_ok, th_local)
+            matcher.unpack_bits_pm1(l_desc), cand_ok, self.scales, th=th_local)
 
         safe2 = torch.where(m2_valid, m2_idx, N)
         pos2 = _scatter_rows(N, safe2, l_pos, 0.0)
         ok_new = _scatter_rows(N, safe2, m2_valid, False)
-        pos_kp = torch.where(bound1[:, None], pos1, pos2)
+        pos_kp = torch.where(bound1[..., None], pos1, pos2)
         assoc = bound1 | ok_new
         res2 = optim.pose_optimization(K, res1.R, res1.t, pos_kp, und, w, assoc)
 
@@ -203,7 +208,8 @@ class FusedStep(nn.Module):
         # frame's stage-1 inputs, minus the post-solve outliers
         ok_next = assoc & res2.inliers
         row1 = _scatter_rows(N, safe1, last_local_row.to(torch.int32), -1)
-        row2 = _scatter_rows(N, safe2, torch.arange(L, dtype=torch.int32, device=K.device), -1)
+        rows = torch.arange(L, dtype=torch.int32, device=K.device).expand(safe2.shape)
+        row2 = _scatter_rows(N, safe2, rows, -1)
         minus1 = torch.full_like(row1, -1)
         next_row = torch.where(ok_new, row2, torch.where(bound1, row1, minus1))
         next_row = torch.where(ok_next, next_row, minus1)

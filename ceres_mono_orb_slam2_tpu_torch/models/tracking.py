@@ -3,8 +3,10 @@
 Port of the serial path of `ceres_mono_orb_slam2_tpu/models/tracking.py`:
 monocular initialization, the motion model, reference-keyframe tracking,
 local-map tracking, the fused hot path (`models/fused_track`) against the
-device map pool, the keyframe decision, relocalization against a BoW
-keyframe database and the trajectory log. Pipelined tracking waits for a
+device map pool (split into `_fused_prepare` / `_fused_finish` /
+`_fused_consume`, so that `parallel/multisystem.py` can batch the device
+phase of several streams), the keyframe decision, relocalization against a
+BoW keyframe database and the trajectory log. Pipelined tracking waits for a
 later port; without a relocalizer a lost frame stays lost, as in the JAX
 package with no vocabulary.
 """
@@ -202,8 +204,21 @@ class Tracking:
         control copy back, then host bookkeeping (TrackWithMotionModel +
         TrackLocalMap, Tracking.cc:617-715). Falls back to reference-keyframe
         tracking when the motion-model gates fail."""
-        from ceres_mono_orb_slam2_tpu_torch.models import fused_track
+        self._fused_finish(*self._fused_prepare(image, timestamp))
 
+    def _fused_prepare(self, image: np.ndarray, timestamp: float):
+        """Host phase 1 of the fused path: motion prediction, pool delta
+        sync, local-block selection. Returns (args, aux): `args` is what the
+        device phase reads, `aux` the host context `_fused_consume` needs.
+        Split out so that `MultiStreamSLAM` (parallel/multisystem.py) can
+        prepare S streams, run one batched device phase and consume each
+        stream; call under map.update_lock.
+
+        args = (image, last octaves, last angles, last descriptors (device
+        tensors of the last frame), last_pos (N, 3), last_ok (N,),
+        last_local_row (N,), R_pred (3, 3), t_pred (3,), th_local,
+        slots_padded (L,), pool, bounds): the seven host inputs stay numpy,
+        so that a batch stacks them and uploads each once."""
         t0 = time.perf_counter()
         lf = self.last_frame
         self._check_replaced_in_last_frame()
@@ -226,23 +241,38 @@ class Tracking:
         # slot -> id snapshot of the local block rows
         ids_snap = np.full(L, -1, np.int64)
         ids_snap[: len(slots)] = pool.id_of[slots]
+        args = (image, lf.j_octave, lf.j_angle, lf.j_desc, last_pos, last_ok, last_local_row,
+                R_pred, t_pred, th_local, slots_padded, pool, self.j_bounds)
+        aux = (t0, lf, local_kfs, slots, L, timestamp, ids_snap)
+        return args, aux
 
+    def _fused_finish(self, args, aux):
+        """Single-stream device phase and host phase 2: extraction, pool
+        gather and the fused step, one packed control copy to the host,
+        then `_fused_consume`."""
+        from ceres_mono_orb_slam2_tpu_torch.models import fused_track
+
+        (image, last_oct, last_angle, last_desc, last_pos, last_ok, last_local_row,
+         R_pred, t_pred, th_local, slots_padded, pool, bounds) = args
         feats = self.extractor.extract(image)
         f1 = type(feats)(*(a[0] for a in feats))
         step = self._ensure_fused_step()
         out = step(f1.xy, f1.octave, f1.angle, f1.desc, f1.valid,
-                   lf.j_octave, lf.j_angle, lf.j_desc,
+                   last_oct, last_angle, last_desc,
                    self._dev(last_pos), self._dev(last_ok), self._dev(last_local_row),
                    self._dev(R_pred), self._dev(t_pred),
-                   *pool.gather(slots_padded), self.j_bounds, th_local)
+                   *pool.gather(slots_padded), bounds, th_local)
         host = fused_track.pack_control(out, f1.valid).cpu().numpy()
-        self._fused_consume(t0, lf, local_kfs, slots, L, timestamp, ids_snap, out, f1, host)
+        self._fused_consume(aux, out, f1, host)
 
-    def _fused_consume(self, t0, lf, local_kfs, slots, L, timestamp, ids_snap, out, feats, host):
-        """Host phase of the fused path: association bookkeeping, stats,
-        fallbacks, keyframe decision."""
+    def _fused_consume(self, aux, out, feats, host):
+        """Host phase 2 of the fused path: association bookkeeping, stats,
+        fallbacks, keyframe decision. `host` is the frame's packed control
+        buffer (`fused_track.pack_control`) on the host. Call under
+        map.update_lock."""
         from ceres_mono_orb_slam2_tpu_torch.models import fused_track
 
+        t0, lf, local_kfs, slots, L, timestamp, ids_snap = aux
         (R2, t2, m1_idx, m1v, inl1, n1, ninl1, m2_idx, m2v, visible,
          assoc, inl2, ninl2, h_valid) = fused_track.unpack_control(host, L)
         f = Frame(feats, self.cam, timestamp, lazy=True, j_und=out.und,

@@ -8,22 +8,26 @@ from __future__ import annotations
 
 import torch
 
+from ceres_mono_orb_slam2_tpu_torch.ops import lie
+
 
 def frustum_and_scale(Rcw, tcw, K, bounds, pos, normal, min_dist, max_dist, valid,
                       log_scale: float, n_levels: int):
-    """Rcw (3,3), tcw (3,), K (3,3), bounds (4,) [min_x, max_x, min_y, max_y],
-    pos/normal (M,3), min/max_dist (M,), valid (M,).
-    Returns (uv (M,2), level (M,) int64, viewcos (M,), visible (M,))."""
-    Xc = pos @ Rcw.T + tcw
-    z = Xc[:, 2]
+    """Rcw (..., 3,3), tcw (..., 3), K (3,3), bounds (4,) [min_x, max_x, min_y,
+    max_y], pos/normal (..., M,3), min/max_dist (..., M), valid (..., M); the
+    leading axes (none, or one entry per stream) are shared.
+    Returns (uv (..., M,2), level (..., M) int64, viewcos (..., M), visible (..., M))."""
+    Rwc = Rcw.transpose(-1, -2)
+    Xc = pos @ Rwc + tcw[..., None, :]
+    z = Xc[..., 2]
     zok = z > 0.0
     zs = torch.where(zok, z, torch.ones_like(z))
-    u = K[0, 0] * Xc[:, 0] / zs + K[0, 2]
-    v = K[1, 1] * Xc[:, 1] / zs + K[1, 2]
+    u = K[0, 0] * Xc[..., 0] / zs + K[0, 2]
+    v = K[1, 1] * Xc[..., 1] / zs + K[1, 2]
     in_img = (u >= bounds[0]) & (u < bounds[1]) & (v >= bounds[2]) & (v < bounds[3])
 
-    Oc = -Rcw.T @ tcw
-    PO = pos - Oc
+    Oc = lie.matvec(-Rwc, tcw)
+    PO = pos - Oc[..., None, :]
     dist = torch.linalg.norm(PO, dim=-1)
     # [0.8 * min, 1.2 * max] slack of the reference's scale-invariance check
     dist_ok = (dist >= 0.8 * min_dist) & (dist <= 1.2 * max_dist)

@@ -22,6 +22,15 @@ def _eye3(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device)
 
 
+def matvec(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A (..., n, m) times v (..., m) -> (..., n). One matrix and one vector
+    take the plain matrix-vector product, so that an unbatched caller keeps
+    the arithmetic it had before the leading axes were allowed."""
+    if A.dim() == 2 and v.dim() == 1:
+        return A @ v
+    return (A @ v[..., None])[..., 0]
+
+
 def hat(w: torch.Tensor) -> torch.Tensor:
     """so3 hat: (..., 3) -> (..., 3, 3) skew-symmetric."""
     wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]

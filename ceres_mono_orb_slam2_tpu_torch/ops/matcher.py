@@ -61,34 +61,37 @@ def hamming_pairwise(desc_a_u8: torch.Tensor, desc_b_u8: torch.Tensor) -> torch.
 
 def masked_top2(dist: torch.Tensor, mask: torch.Tensor):
     """Per-row best and second best over the target axis; argmin returns the
-    first minimal index. dist (Q, T) int32, mask (Q, T) bool."""
+    first minimal index. dist (..., Q, T) int32, mask (..., Q, T) bool."""
     d = torch.where(mask, dist, torch.full_like(dist, BIG))
     best_idx = d.argmin(-1)
-    best_val = torch.gather(d, -1, best_idx[:, None])[:, 0]
-    d2 = d.scatter(-1, best_idx[:, None], BIG)
+    best_val = torch.gather(d, -1, best_idx[..., None])[..., 0]
+    d2 = d.scatter(-1, best_idx[..., None], BIG)
     second_idx = d2.argmin(-1)
-    second_val = torch.gather(d2, -1, second_idx[:, None])[:, 0]
+    second_val = torch.gather(d2, -1, second_idx[..., None])[..., 0]
     return best_val, best_idx, second_val, second_idx
 
 
 def resolve_duplicate_targets(best_idx, best_val, valid, n_targets: int):
     """Keep, for every target claimed by several queries, only the query with
     the smallest distance, lowest query index on ties. Returns the filtered
-    `valid` mask."""
+    `valid` mask. All of (..., Q); every leading index is its own problem
+    with its own `n_targets` targets."""
+    lead = best_idx.shape[:-1]
     key = torch.where(valid, best_val, torch.full_like(best_val, BIG))
-    per_target = torch.full((n_targets,), BIG, dtype=key.dtype, device=key.device)
-    per_target = per_target.scatter_reduce(0, best_idx, key, "amin")
-    attains = valid & (key == per_target[best_idx])
-    qidx = torch.arange(best_idx.shape[0], device=best_idx.device)
-    first_q = torch.full((n_targets,), 1 << 30, dtype=qidx.dtype, device=qidx.device)
+    per_target = torch.full(lead + (n_targets,), BIG, dtype=key.dtype, device=key.device)
+    per_target = per_target.scatter_reduce(-1, best_idx, key, "amin")
+    attains = valid & (key == per_target.gather(-1, best_idx))
+    qidx = torch.arange(best_idx.shape[-1], device=best_idx.device).expand(best_idx.shape)
+    first_q = torch.full(lead + (n_targets,), 1 << 30, dtype=qidx.dtype, device=qidx.device)
     first_q = first_q.scatter_reduce(
-        0, best_idx, torch.where(attains, qidx, torch.full_like(qidx, 1 << 30)), "amin")
-    return attains & (first_q[best_idx] == qidx)
+        -1, best_idx, torch.where(attains, qidx, torch.full_like(qidx, 1 << 30)), "amin")
+    return attains & (first_q.gather(-1, best_idx) == qidx)
 
 
 def rotation_consistency_mask(angle_q, angle_t_matched, valid):
     """Keep matches whose rotation offset falls in the 3 most popular of 30
-    bins (ComputeThreeMaxima + HISTO_LENGTH filter). Angles in radians.
+    bins (ComputeThreeMaxima + HISTO_LENGTH filter). Angles in radians, all
+    arguments (..., Q) with one histogram per leading index.
 
     As in the reference: `top_k(counts, 3)` values, 2nd/3rd dropped below 0.1x
     the best, and bin selection by count equality (which can alias bins tied
@@ -99,15 +102,15 @@ def rotation_consistency_mask(angle_q, angle_t_matched, valid):
     bins = torch.round(rot * factor).to(torch.int64)
     bins = torch.where(bins == HISTO_LENGTH, torch.zeros_like(bins), bins)
     bins = bins.clamp(0, HISTO_LENGTH - 1)
-    counts = torch.zeros(HISTO_LENGTH, dtype=torch.int32, device=bins.device)
-    counts = counts.index_add(0, bins, valid.to(torch.int32))
+    counts = torch.zeros(bins.shape[:-1] + (HISTO_LENGTH,), dtype=torch.int32, device=bins.device)
+    counts = counts.scatter_add(-1, bins, valid.to(torch.int32))
     top3 = torch.topk(counts, 3).values
-    max1 = top3[0].float()
-    keep1 = top3[0]
+    keep1 = top3[..., 0:1]
+    max1 = keep1.float()
     neg = torch.full_like(keep1, -1)
-    keep2 = torch.where(top3[1].float() > 0.1 * max1, top3[1], neg)
-    keep3 = torch.where(top3[2].float() > 0.1 * max1, top3[2], neg)
-    c = counts[bins]
+    keep2 = torch.where(top3[..., 1:2].float() > 0.1 * max1, top3[..., 1:2], neg)
+    keep3 = torch.where(top3[..., 2:3].float() > 0.1 * max1, top3[..., 2:3], neg)
+    c = counts.gather(-1, bins)
     bin_ok = (c == keep1) | (c == keep2) | (c == keep3)
     return valid & bin_ok & (c > 0)
 
@@ -118,9 +121,11 @@ def radius_by_viewing_cos(view_cos):
 
 
 def _window(pr_uv, kp_xy, r):
-    du = (pr_uv[:, 0:1] - kp_xy[None, :, 0]).abs()
-    dv = (pr_uv[:, 1:2] - kp_xy[None, :, 1]).abs()
-    return du, dv, (du <= r[:, None]) & (dv <= r[:, None])
+    """|du|, |dv| and the box test of queries pr_uv (..., Q, 2) with radii r
+    (..., Q) against targets kp_xy (..., T, 2): each (..., Q, T)."""
+    du = (pr_uv[..., 0:1] - kp_xy[..., None, :, 0]).abs()
+    dv = (pr_uv[..., 1:2] - kp_xy[..., None, :, 1]).abs()
+    return du, dv, (du <= r[..., None]) & (dv <= r[..., None])
 
 
 # --------------------------------------------------------------------------
@@ -134,17 +139,22 @@ def search_by_projection_points(kp_xy, kp_octave, kp_bits, kp_valid, kp_free,
                                 scale_factors, th: float = 1.0, ratio: float = 0.8):
     """TrackLocalMap search (SearchByProjection overload #1): each candidate
     local map point to the best frame keypoint in a viewing-cos radius and
-    level window [l-1, l]; the ratio test applies only on equal levels."""
+    level window [l-1, l]; the ratio test applies only on equal levels.
+    Keypoint arguments are (..., N, ...) and point arguments (..., M, ...)
+    with the same leading axes (none, or one entry per stream); `th` is a
+    number or a (..., 1) tensor."""
     r = radius_by_viewing_cos(pr_viewcos) * th * scale_factors[pr_level]
     _, _, in_window = _window(pr_uv, kp_xy, r)
-    lvl_ok = (kp_octave[None, :] >= pr_level[:, None] - 1) & (kp_octave[None, :] <= pr_level[:, None])
-    mask = in_window & lvl_ok & kp_valid[None, :] & kp_free[None, :] & pr_valid[:, None]
+    kp_oct, lvl = kp_octave[..., None, :], pr_level[..., None]
+    lvl_ok = (kp_oct >= lvl - 1) & (kp_oct <= lvl)
+    mask = (in_window & lvl_ok & kp_valid[..., None, :] & kp_free[..., None, :]
+            & pr_valid[..., None])
     dist = hamming_matrix(pr_bits, kp_bits)
     best_val, best_idx, second_val, second_idx = masked_top2(dist, mask)
-    ratio_ok = (kp_octave[best_idx] != kp_octave[second_idx]) | (
+    ratio_ok = (kp_octave.gather(-1, best_idx) != kp_octave.gather(-1, second_idx)) | (
         best_val.float() <= ratio * second_val.float())
     valid = pr_valid & (best_val <= TH_HIGH) & ratio_ok
-    valid = resolve_duplicate_targets(best_idx, best_val, valid, kp_xy.shape[0])
+    valid = resolve_duplicate_targets(best_idx, best_val, valid, kp_xy.shape[-2])
     return best_idx, best_val, valid
 
 

@@ -2,7 +2,8 @@
 
 Port of `ceres_mono_orb_slam2_tpu/ops/optim.py`: motion-only pose
 optimization, bundle adjustment with a dense point-block Schur complement
-(`bundle_adjustment`, local windows) and with the point block eliminated
+(`bundle_adjustment`, local windows; `bundle_adjustment_streams`, S such
+problems of one shape at once) and with the point block eliminated
 implicitly and the pose system solved by conjugate gradients
 (`bundle_adjustment_cg`, any map size).
 Residuals and analytic Jacobians are batched over observations; the normal
@@ -106,8 +107,8 @@ def _pose_jacobian(Jp, Xc):
 class PoseOptResult(NamedTuple):
     R: torch.Tensor
     t: torch.Tensor
-    inliers: torch.Tensor  # (N,) bool: valid obs passing the chi2 gate
-    n_inliers: torch.Tensor  # () int32
+    inliers: torch.Tensor  # (..., N) bool: valid obs passing the chi2 gate
+    n_inliers: torch.Tensor  # (...) int32
     cost: torch.Tensor
 
 
@@ -122,20 +123,27 @@ def pose_optimization(K, R0, t0, pts3d, uv, inv_sigma2, valid, max_iters: int = 
     freezes the state once the JAX package's while_loop would have exited
     (an accepted step that barely moved the cost, or a rejection with damping
     past 1): the same results with no host synchronisation per iteration.
+
+    R0 (..., 3, 3), t0 (..., 3), pts3d (..., N, 3), uv (..., N, 2), inv_sigma2
+    and valid (..., N): the leading axes (none, or one entry per stream) are
+    independent problems, each with its own damping, cost and `done`, so a
+    stream that has converged stays frozen while the others go on. K is
+    shared. The result's fields carry the same leading axes.
     """
     delta = math.sqrt(chi2_th)
     dev, dt = R0.device, R0.dtype
+    lead = R0.shape[:-2]
     eye6 = torch.eye(6, dtype=dt, device=dev)
 
     def residuals(R, t):
-        Xc = pts3d @ R.T + t
+        Xc = pts3d @ R.transpose(-1, -2) + t[..., None, :]
         return uv - _project(K, Xc), Xc, Xc[..., 2] <= 0.05
 
     def cost_fn(R, t, active):
         r, _, behind = residuals(R, t)
         s = inv_sigma2 * (r * r).sum(-1)
         s = torch.where(behind, torch.full_like(s, 1e6), s)
-        return torch.where(active, huber_cost(s, delta), torch.zeros_like(s)).sum()
+        return torch.where(active, huber_cost(s, delta), torch.zeros_like(s)).sum(-1)
 
     # project the initial rotation onto SO(3): the motion-model prediction
     # composes previous solutions and accumulates determinant drift
@@ -144,27 +152,28 @@ def pose_optimization(K, R0, t0, pts3d, uv, inv_sigma2, valid, max_iters: int = 
     cost = None
     for _ in range(max(rounds, 1)):
         cost = cost_fn(R, t, active)
-        lam = torch.tensor(1e-4, dtype=dt, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
+        lam = torch.full(lead, 1e-4, dtype=dt, device=dev)
+        done = torch.zeros(lead, dtype=torch.bool, device=dev)
         for _ in range(max_iters):
             r, Xc, behind = residuals(R, t)
             s = inv_sigma2 * (r * r).sum(-1)
             w = inv_sigma2 * huber_weight(s, delta)
             w = torch.where(active & ~behind, w, torch.zeros_like(w))
-            Jr = _pose_jacobian(_proj_jacobian(K, Xc), Xc)  # (N, 2, 6)
-            wJ = w[:, None, None] * Jr
-            H = torch.einsum("nik,nil->kl", wJ, Jr)
-            g = -torch.einsum("nik,ni->k", wJ, r)
-            Hd = H + lam * torch.diag_embed(torch.diagonal(H)) + 1e-8 * eye6
+            Jr = _pose_jacobian(_proj_jacobian(K, Xc), Xc)  # (..., N, 2, 6)
+            wJ = w[..., None, None] * Jr
+            H = torch.einsum("...nik,...nil->...kl", wJ, Jr)
+            g = -torch.einsum("...nik,...ni->...k", wJ, r)
+            Hd = (H + lam[..., None, None] * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1))
+                  + 1e-8 * eye6)
             dR, dtv = lie.se3_exp(_solve6_spd(Hd, g))
             R_new = dR @ R
-            t_new = dR @ t + dtv
+            t_new = lie.matvec(dR, t) + dtv
             new_cost = cost_fn(R_new, t_new, active)
             accept = new_cost < cost
             stop = (accept & (cost - new_cost <= 1e-6 * cost)) | (~accept & (lam >= 1.0))
             take = accept & ~done
-            R = torch.where(take, R_new, R)
-            t = torch.where(take, t_new, t)
+            R = torch.where(take[..., None, None], R_new, R)
+            t = torch.where(take[..., None], t_new, t)
             cost = torch.where(take, new_cost, cost)
             lam = torch.where(done, lam, torch.where(accept, (lam * 0.25).clamp_min(1e-8),
                                                      (lam * 4.0).clamp_max(1e5)))
@@ -175,7 +184,7 @@ def pose_optimization(K, R0, t0, pts3d, uv, inv_sigma2, valid, max_iters: int = 
         chi2 = inv_sigma2 * (r * r).sum(-1)
         active = valid & ~behind & (chi2 <= chi2_th)
     return PoseOptResult(R=R, t=t, inliers=active,
-                         n_inliers=active.to(torch.int32).sum(), cost=cost)
+                         n_inliers=active.to(torch.int32).sum(-1), cost=cost)
 
 
 class SegmentSum:
@@ -334,6 +343,125 @@ def bundle_adjustment(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigm
     s_final, _, Xc2 = chi2_of(R2, t2, pts2)
     inlier_obs = obs_valid & (s_final <= chi2_th) & (Xc2[..., 2] > 1e-6)
     return BAResult(R=R2, t=t2, points=pts2, inlier_obs=inlier_obs, cost=cost)
+
+
+def bundle_adjustment_streams(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigma2,
+                              obs_valid, fixed_pose, point_valid, iters_huber: int = 5,
+                              iters_trimmed: int = 10, chi2_th: float = CHI2_MONO) -> BAResult:
+    """`bundle_adjustment` of S independent problems of one shape in one set
+    of launches: R (S, P, 3, 3), t (S, P, 3), points (S, M, 3), observations
+    (S, O, ...), fixed_pose (S, P), point_valid (S, M); every field of the
+    result carries the stream axis, `cost` is (S,).
+
+    Pose and point indices are offset per stream (s * P + p, s * M + m), so
+    one set of segment sums assembles all S normal equations; the S reduced
+    6P x 6P systems go through one batched Cholesky. Damping, cost, accept
+    or reject and convergence are (S,) vectors: a stream that has converged
+    keeps its state while the others iterate (one host check per iteration,
+    of whether all have), so each stream takes the steps its own solve
+    would take."""
+    S, P = R.shape[:2]
+    M, O = points.shape[1], obs_pose.shape[1]
+    dev, dt = R.device, R.dtype
+    delta = math.sqrt(chi2_th)
+    free6 = (~fixed_pose).repeat_interleave(6, dim=1)  # (S, 6P)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    stream = torch.arange(S, device=dev)[:, None]
+    op = (obs_pose.long() + stream * P).reshape(-1)
+    oj = (obs_point.long() + stream * M).reshape(-1)
+    by_pose, by_point = SegmentSum(op, S * P), SegmentSum(oj, S * M)
+    by_pair = SegmentSum(oj * P + obs_pose.long().reshape(-1), S * M * P)
+    uv, w_obs = obs_uv.reshape(S * O, 2), obs_inv_sigma2.reshape(S * O)
+    pt_ok = point_valid.reshape(S * M)
+    pose_ar = torch.arange(P, device=dev)
+
+    def per_pose(x):  # (S,) -> (S * P, 1, 1)
+        return x.repeat_interleave(P)[:, None, None]
+
+    def per_point(x):  # (S,) -> (S * M, 1, 1)
+        return x.repeat_interleave(M)[:, None, None]
+
+    def chi2_of(Rp, tp, pts):
+        Xc = (Rp[op] @ pts[oj][..., None])[..., 0] + tp[op]
+        r = uv - _project(K, Xc)
+        s = w_obs * (r * r).sum(-1)
+        return torch.where(Xc[..., 2] <= 1e-6, torch.full_like(s, 1e6), s), r, Xc
+
+    def total_cost(Rp, tp, pts, mask, robust):
+        s, _, _ = chi2_of(Rp, tp, pts)
+        c = huber_cost(s, delta) if robust else s
+        return torch.where(mask, c, torch.zeros_like(c)).reshape(S, O).sum(-1)
+
+    def lm_iteration(Rp, tp, pts, lam, cost, done, mask, robust):
+        s, r, Xc = chi2_of(Rp, tp, pts)
+        w = w_obs * (huber_weight(s, delta) if robust else 1.0)
+        w = torch.where(mask & (Xc[..., 2] > 1e-6), w, torch.zeros_like(w))
+        Jp = _proj_jacobian(K, Xc)
+        A = _pose_jacobian(Jp, Xc)
+        B = -(Jp @ Rp[op])
+        Hpp, bp, Hll, bl, U = assemble_normal_equations(by_pose, by_point, by_pair, A, B, r, w,
+                                                        P, S * M)
+        U3 = U.reshape(S, M, P * 6, 3)
+        Hll_d = Hll + per_point(lam) * (Hll * eye3) + 1e-6 * eye3
+        Hpp_d = Hpp + per_pose(lam) * (Hpp * eye6) + 1e-6 * eye6
+        Hll_inv = torch.where(pt_ok[:, None, None], _inv3x3(Hll_d),
+                              torch.zeros_like(Hll_d)).reshape(S, M, 3, 3)
+        bl = bl.reshape(S, M, 3)
+        T3 = torch.einsum("smak,smkl->smal", U3, Hll_inv)
+        # per stream: S = blockdiag(Hpp_d) - sum_m U_m Hll_m^-1 U_m^T
+        Sm = -torch.einsum("smak,smbk->sab", T3, U3).reshape(S, P, 6, P, 6)
+        Sm[:, pose_ar, :, pose_ar, :] += Hpp_d.reshape(S, P, 6, 6).transpose(0, 1)
+        Sm = Sm.reshape(S, P * 6, P * 6)
+        rhs = bp.reshape(S, P * 6) - torch.einsum("smak,smk->sa", T3, bl)
+        # gauge: zero rows/cols of fixed poses, identity diagonal
+        Sm = torch.where(free6[:, :, None] & free6[:, None, :], Sm, torch.zeros_like(Sm))
+        Sm = Sm + torch.diag_embed(torch.where(free6, 0.0, 1.0).to(dt))
+        rhs = torch.where(free6, rhs, torch.zeros_like(rhs))
+        L, info = torch.linalg.cholesky_ex(Sm)
+        dp = torch.cholesky_solve(rhs[..., None], L)[..., 0]
+        # a failed factorisation rejects that stream's step (NaN cost)
+        dp = torch.where((info == 0)[:, None], dp, torch.full_like(dp, float("nan")))
+        dl = torch.einsum("smkl,sml->smk", Hll_inv, bl - torch.einsum("smak,sa->smk", U3, dp))
+        dl = torch.where(pt_ok[:, None], dl.reshape(S * M, 3), torch.zeros_like(pts))
+        dRp, dtp = lie.se3_exp(dp.reshape(S * P, 6))
+        R_new = dRp @ Rp
+        t_new = (dRp @ tp[..., None])[..., 0] + dtp
+        pts_new = pts + dl
+        new_cost = total_cost(R_new, t_new, pts_new, mask, robust)
+        accept = new_cost < cost
+        converged = accept & (cost - new_cost <= 1e-6 * cost)
+        take = accept & ~done
+        Rp = torch.where(per_pose(take), R_new, Rp)
+        tp = torch.where(per_pose(take)[:, 0], t_new, tp)
+        pts = torch.where(per_point(take)[:, 0], pts_new, pts)
+        lam = torch.where(done, lam, torch.where(accept, (lam * 0.33).clamp_min(1e-7),
+                                                 (lam * 5.0).clamp_max(1e6)))
+        cost = torch.where(take, new_cost, cost)
+        return Rp, tp, pts, lam, cost, done | converged
+
+    def run_pass(Rp, tp, pts, mask, robust, n_iters):
+        cost = total_cost(Rp, tp, pts, mask, robust)
+        lam = torch.full((S,), 1e-4, dtype=dt, device=dev)
+        done = torch.zeros((S,), dtype=torch.bool, device=dev)
+        for _ in range(n_iters):
+            Rp, tp, pts, lam, cost, done = lm_iteration(Rp, tp, pts, lam, cost, done, mask, robust)
+            if bool(done.all()):
+                break
+        return Rp, tp, pts, cost
+
+    valid = obs_valid.reshape(S * O)
+    R1, t1, pts1, _ = run_pass(lie.so3_project(R.reshape(S * P, 3, 3)), t.reshape(S * P, 3),
+                               points.reshape(S * M, 3), valid, True, iters_huber)
+    R1 = lie.so3_project(R1)
+    s, _, Xc = chi2_of(R1, t1, pts1)
+    keep = valid & (s <= chi2_th) & (Xc[..., 2] > 1e-6)
+    R2, t2, pts2, cost = run_pass(R1, t1, pts1, keep, False, iters_trimmed)
+    R2 = lie.so3_project(R2)
+    s_final, _, Xc2 = chi2_of(R2, t2, pts2)
+    inlier_obs = valid & (s_final <= chi2_th) & (Xc2[..., 2] > 1e-6)
+    return BAResult(R=R2.reshape(S, P, 3, 3), t=t2.reshape(S, P, 3), points=pts2.reshape(S, M, 3),
+                    inlier_obs=inlier_obs.reshape(S, O), cost=cost)
 
 
 def pcg(matvec, precond, b, iters: int):

@@ -1,0 +1,151 @@
+"""Batched multi-stream tracking step and batched local bundle adjustment.
+
+Port of the one-card half of `ceres_mono_orb_slam2_tpu/parallel/multistream.py`:
+S concurrent SLAM streams on one card, a leading stream axis through the
+whole per-frame device pipeline (extract -> frustum + scale prediction ->
+projection match -> pose LM). Where the JAX package vmaps a one-stream
+function, the ops here take the stream axis themselves (`ops/matcher.py`,
+`ops/frustum.py`, `ops/optim.py`), so S streams cost the launches of one:
+one FAST+NMS launch, one patch-gather launch, one Hamming product, one LM
+loop in which every stream keeps its own damping and freezes on its own
+convergence. The multi-chip sharding of the step is a later port.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ceres_mono_orb_slam2_tpu_torch.models.fused_track import _scatter_rows
+from ceres_mono_orb_slam2_tpu_torch.ops import frustum, matcher, optim
+from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import ORBExtractor
+from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+
+class StreamState(NamedTuple):
+    """Per-stream tracking state (leading axis = streams)."""
+
+    Rcw: torch.Tensor  # (S, 3, 3)
+    tcw: torch.Tensor  # (S, 3)
+    map_pos: torch.Tensor  # (S, M, 3)
+    map_normal: torch.Tensor  # (S, M, 3)
+    map_min_dist: torch.Tensor  # (S, M)
+    map_max_dist: torch.Tensor  # (S, M)
+    map_bits: torch.Tensor  # (S, M, 256) +-1 descriptor bits
+    map_valid: torch.Tensor  # (S, M)
+
+
+class StepResult(NamedTuple):
+    Rcw: torch.Tensor  # (S, 3, 3)
+    tcw: torch.Tensor  # (S, 3)
+    n_inliers: torch.Tensor  # (S,)
+    n_matches: torch.Tensor  # (S,)
+
+
+def make_multistream_step(config, h: int, w: int, device=DEFAULT_DEVICE):
+    """Build the per-frame device step for a batch of streams: ORB
+    extraction, frustum + scale prediction, local-map projection search
+    (th=3) and the 4-round trimmed LM pose solve, all with a leading stream
+    axis. Returns step(images (S, h, w), state: StreamState) -> StepResult."""
+    device = resolve_device(device)
+    extractor = ORBExtractor(config.orb, device=device)
+    K = torch.as_tensor(np.asarray(config.camera.K, np.float32), device=device)
+    scales = torch.as_tensor(np.asarray(config.orb.scale_factors, np.float32), device=device)
+    inv_sigma2 = torch.as_tensor(np.asarray(config.orb.inv_level_sigma2, np.float32), device=device)
+    bounds = torch.tensor([0, w, 0, h], dtype=torch.float32, device=device)
+    log_scale = float(np.log(config.orb.scale_factor))
+    n_levels = config.orb.n_levels
+
+    @torch.no_grad()
+    def step(images, state: StreamState) -> StepResult:
+        feats = extractor.extract(images)  # one batch over the streams
+        n_kp = feats.xy.shape[-2]
+        uv, level, viewcos, visible = frustum.frustum_and_scale(
+            state.Rcw, state.tcw, K, bounds, state.map_pos, state.map_normal,
+            state.map_min_dist, state.map_max_dist, state.map_valid, log_scale, n_levels)
+        idx, _, mvalid = matcher.search_by_projection_points(
+            feats.xy, feats.octave, matcher.unpack_bits_pm1(feats.desc), feats.valid,
+            torch.ones_like(feats.valid), uv, level, viewcos, state.map_bits, visible,
+            scales, th=3.0)
+        # matched map-point positions into keypoint slots; unmatched points
+        # go to a dummy slot, so they cannot overwrite a match
+        safe_idx = torch.where(mvalid, idx, n_kp)
+        pos_kp = _scatter_rows(n_kp, safe_idx, state.map_pos, 0.0)
+        ok = _scatter_rows(n_kp, safe_idx, mvalid, False)
+        # the live tracker's solver settings: 4 trimming rounds of 25
+        # iterations, each stream frozen at its own convergence
+        res = optim.pose_optimization(K, state.Rcw, state.tcw, pos_kp, feats.xy,
+                                      inv_sigma2[feats.octave], ok)
+        return StepResult(Rcw=res.R, tcw=res.t, n_inliers=res.n_inliers,
+                          n_matches=mvalid.to(torch.int32).sum(-1))
+
+    return step
+
+
+def synthetic_stream_state(config, n_streams: int, n_map_points: int, seed: int = 0,
+                           h: int = 480, w: int = 640, device=DEFAULT_DEVICE) -> tuple:
+    """Geometrically consistent stream states and images for measurements:
+    each stream's map back-projects the extractor's own keypoints on that
+    stream's image to plausible depths, so the projection search really
+    matches and the LM solve does real work. The images and depths draw
+    from the same numpy generator in the same order as the JAX package's
+    function. Returns (images (S, h, w) float32 numpy, StreamState on
+    `device`)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    fx, fy = config.camera.fx, config.camera.fy
+    cx, cy = config.camera.cx, config.camera.cy
+    # blobby images so that FAST fires
+    images = np.full((n_streams, h, w), 40.0, np.float32)
+    for s in range(n_streams):
+        for _ in range((h * w) // 900):
+            y = rng.integers(0, h - 10)
+            x = rng.integers(0, w - 10)
+            images[s, y: y + rng.integers(3, 10), x: x + rng.integers(3, 10)] = rng.uniform(90, 250)
+        images[s] += rng.standard_normal((h, w)).astype(np.float32) * 2
+
+    feats = ORBExtractor(config.orb, device=device).extract(images)
+    kxy = feats.xy.cpu().numpy()
+    kdesc = feats.desc.cpu().numpy()
+    kvalid = feats.valid.cpu().numpy()
+
+    M = n_map_points
+    pos = np.zeros((n_streams, M, 3), np.float32)
+    desc = np.zeros((n_streams, M, 32), np.uint8)
+    valid = np.zeros((n_streams, M), bool)
+    for s in range(n_streams):
+        vi = np.nonzero(kvalid[s])[0]
+        take = vi[: min(len(vi), M)]
+        z = rng.uniform(4.0, 9.0, len(take)).astype(np.float32)
+        pos[s, : len(take), 0] = (kxy[s, take, 0] - cx) / fx * z
+        pos[s, : len(take), 1] = (kxy[s, take, 1] - cy) / fy * z
+        pos[s, : len(take), 2] = z
+        desc[s, : len(take)] = kdesc[s, take]
+        valid[s, : len(take)] = True
+    # viewing normal = direction camera -> point (UpdateNormalAndDepth)
+    normal = pos / np.maximum(np.linalg.norm(pos, axis=-1, keepdims=True), 1e-6)
+    dists = np.maximum(np.linalg.norm(pos, axis=-1), 1.0)
+    dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    state = StreamState(
+        Rcw=dev(np.tile(np.eye(3, dtype=np.float32), (n_streams, 1, 1))),
+        tcw=torch.zeros((n_streams, 3), dtype=torch.float32, device=device),
+        map_pos=dev(pos), map_normal=dev(normal),
+        map_min_dist=dev((dists * 0.5).astype(np.float32)),
+        map_max_dist=dev((dists * 2.0).astype(np.float32)),
+        map_bits=matcher.unpack_u8(desc, device=device), map_valid=dev(valid))
+    return images, state
+
+
+def make_multistream_local_ba(iters_huber: int = 5, iters_trimmed: int = 10):
+    """Batched local bundle adjustment: S independent streams' local-BA
+    problems of one shape (P poses, M points, O observations, padded by
+    their masks) solved together by `optim.bundle_adjustment_streams`.
+
+    Returns fn(K, R (S,P,3,3), t, points (S,M,3), obs_pose (S,O), obs_point,
+    obs_uv, obs_w, obs_valid, fixed (S,P), point_valid (S,M)) -> BAResult
+    with a leading stream axis on every field."""
+    return partial(optim.bundle_adjustment_streams,
+                   iters_huber=iters_huber, iters_trimmed=iters_trimmed)

@@ -56,6 +56,20 @@ class _FrameShim:
         self.mp_ids = np.array(kf.mp_ids, np.int64)
 
 
+def stream_state_from_reference(state, device="cpu"):
+    """A reference multi-stream `StreamState` (a NamedTuple of arrays with a
+    leading stream axis) as the port's, on `device`: masks stay bool, every
+    other field becomes float32 (the reference keeps its +-1 descriptor bits
+    in bfloat16, which holds them exactly)."""
+    from ceres_mono_orb_slam2_tpu_torch.parallel.multistream import StreamState
+
+    def conv(a):
+        a = np.asarray(a)
+        return torch.from_numpy(np.array(a, a.dtype if a.dtype == bool else np.float32)).to(device)
+
+    return StreamState(**{name: conv(getattr(state, name)) for name in StreamState._fields})
+
+
 def vocabulary_from_reference(voc):
     """A reference `Vocabulary` (a dataclass of numpy fields) as the port's."""
     from ceres_mono_orb_slam2_tpu_torch.ops.bow import Vocabulary

@@ -9,8 +9,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      pyramids: the 8-level KITTI 1241x376 pyramid at B=1 and B=8 and the
      8-level TUM 640x480 one at B=1, u8-valued and float pyramids, FAST
      margins 0 and EDGE, both patch sets, keypoints on the clamp edge; then
-     on frame 0's own pyramid and keypoints, where each kernel and its plain
-     version are timed (`time_ms`) beside the kernel's bound;
+     on frame 0's own pyramid and keypoints (B=1) and on frames 0-7 as one
+     batch (B=8), where each kernel and its plain version are timed
+     (`time_ms`) beside the kernel's bound;
   3. solve one bundle-adjustment problem on the card twice and require
      bit-identical results;
   4. run the serial `MonoSLAM` over 60 rendered frames of the spiral ring
@@ -33,13 +34,26 @@ Phases (each prints its own lines; any failure exits non-zero):
   8. `[loop]`: `MonoSLAM` with the geometric front end (2000 features a
      frame) over a closed 72-frame circle, twice: loop detected, corrected,
      essential graph and global BA run through the full system;
-  9. print the card's name and power limit.
+  9. `[multistream]`: `make_multistream_step` at 1241x376, 2000 features and
+     4096 map points a stream on `synthetic_stream_state`, S=8 against each
+     stream alone (counts equal, poses within a tolerance), the step's time
+     and device launches at S=1 and S=8, one launch of each kernel a step;
+     the batched local BA of 8 problems against 8 single solves;
+ 10. `[multisystem]`: `MultiStreamSLAM` with 8 streams over 60 rendered
+     1241x376 frames each, stream 0 the spiral of phase 4: its decisions
+     equal to the serial run's and its camera centres within 1e-3 of it,
+     every stream initialised, tracked and accurate, one launch of each
+     kernel per batched frame;
+ 11. print the card's name and power limit.
+`python3 chip_smoke.py --only multistream,multisystem` runs the build, the
+spiral and the named phases only (a quicker check while developing).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs one CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -65,6 +79,8 @@ NMS_OPS = 8  # f32 max/compare of one suppression
 
 TIMING_CALLS = 50  # fn() calls captured back to back in one CUDA graph
 TIMING_REPLAYS = 5
+N_STREAMS = 8  # the multi-stream phases
+MAP_POINTS = 4096  # map points a stream of the multi-stream step
 
 
 def log(msg: str):
@@ -197,8 +213,9 @@ def gather_work(layout, ys: torch.Tensor, xs: torch.Tensor, counts):
 
 def phase_kernels(seq, cfg):
     """Bit-exact checks of both kernels on packed pyramids, then their
-    main-path times on frame 0 (B=1), beside their bounds. Returns the
-    per-kernel JSON rows."""
+    main-path times on frame 0 (B=1) and on frames 0-7 as one batch (B=8),
+    beside their bounds. Returns the per-kernel JSON rows: the B=1 numbers
+    under the contract's keys, the B=8 ones under "b8"."""
     from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
     from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import ORBExtractor, _level_sizes
     from ceres_mono_orb_slam2_tpu_torch.utils.config import ORBConfig
@@ -240,35 +257,43 @@ def phase_kernels(seq, cfg):
     log(f"[kernels] one-level fast_nms and gather_patches (r=15, 19) at 2x{H}x{W}: bit-exact")
 
     # the main path's inputs: frame 0's packed pyramid and its keypoints
+    # (B=1, the serial path), and frames 0-7 as one batch (B=8, the
+    # multi-stream path)
     ex = ORBExtractor(cfg.orb, device="cuda")
-    frame = np.clip(seq.images[0] + 0.5, 0.0, 255.0).astype(np.uint8)
-    layout, raw, blurred = ex.pyramid(torch.from_numpy(frame)[None].cuda().float())
-    ys, xs, _, valid, counts = ex.detect(raw, layout)
-    ys = torch.where(valid, ys, k.EDGE).to(torch.int32).contiguous()
-    xs = torch.where(valid, xs, k.EDGE).to(torch.int32).contiguous()
-    fast = (lambda: k.fast_nms_pyramid(raw, layout, k.EDGE),
-            lambda: k.fast_nms_pyramid_plain(raw, layout, k.EDGE))
-    gather = (lambda: k.gather_pyramid_patches(raw, blurred, layout, ys, xs, counts),
-              lambda: k.gather_pyramid_patches_plain(raw, blurred, layout, ys, xs, counts))
-    check_equal("fast_nms", fast[0](), fast[1](), "frame 0")
-    for a, b in zip(gather[0](), gather[1]()):
-        check_equal("gather_patches", a, b, "frame 0")
-    torch.cuda.synchronize()
+    frames = np.clip(seq.images[:N_STREAMS] + 0.5, 0.0, 255.0).astype(np.uint8)
+    measured = {}
+    for B in (1, N_STREAMS):
+        layout, raw, blurred = ex.pyramid(torch.from_numpy(frames[:B]).cuda().float())
+        ys, xs, _, valid, counts = ex.detect(raw, layout)
+        ys = torch.where(valid, ys, k.EDGE).to(torch.int32).contiguous()
+        xs = torch.where(valid, xs, k.EDGE).to(torch.int32).contiguous()
+        fast = (lambda: k.fast_nms_pyramid(raw, layout, k.EDGE),
+                lambda: k.fast_nms_pyramid_plain(raw, layout, k.EDGE))
+        gather = (lambda: k.gather_pyramid_patches(raw, blurred, layout, ys, xs, counts),
+                  lambda: k.gather_pyramid_patches_plain(raw, blurred, layout, ys, xs, counts))
+        check_equal("fast_nms", fast[0](), fast[1](), f"frames 0-{B - 1}")
+        for a, b in zip(gather[0](), gather[1]()):
+            check_equal("gather_patches", a, b, f"frames 0-{B - 1}")
+        torch.cuda.synchronize()
+        for name, fns, work in (("fast_nms", fast, fast_nms_work(layout, B, k.EDGE)),
+                                ("gather_patches", gather, gather_work(layout, ys, xs, counts))):
+            ms, plain_ms = time_ms(fns[0]), time_ms(fns[1])
+            bound_ms, bound_by = bound(*work)
+            measured[name, B] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by, "share": bound_ms / ms, "bytes": work[0]}
+            log(f"[kernels] {name}, frames 0-{B - 1} (B={B}, 8 levels, {int(valid.sum())} keypoints): "
+                f"{ms * 1e3:.2f} us per launch, {ms * 1e3 / B:.2f} us per frame (plain {plain_ms * 1e3:.2f} "
+                f"us); bound {bound_ms * 1e3:.2f} us by {bound_by} ({work[0] / 1e6:.3f} MB, "
+                f"{work[1] / 1e9:.4f} GOP), share {bound_ms / ms:.3f}")
     rows = []
-    for name, fns, work, line in (
-            ("fast_nms", fast, fast_nms_work(layout, 1, k.EDGE), 75),
-            ("gather_patches", gather, gather_work(layout, ys, xs, counts), 270)):
-        ms, plain_ms = time_ms(fns[0]), time_ms(fns[1])
-        bound_ms, bound_by = bound(*work)
+    for name, line in (("fast_nms", 75), ("gather_patches", 270)):
+        one = measured[name, 1]
         rows.append({"name": name, "route": "cuda",
                      "source": f"ceres_mono_orb_slam2_tpu_torch/csrc/{name}.cu",
                      "replaces": f"ceres_mono_orb_slam2_tpu/ops/orb/kernels.py:{line}",
-                     "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
-                     "library_ms": None})
-        log(f"[kernels] {name}, frame 0 (B=1, 8 levels, {int(valid.sum())} keypoints): "
-            f"{ms * 1e3:.2f} us per frame (plain {plain_ms * 1e3:.2f} us); bound {bound_ms * 1e3:.2f} us "
-            f"by {bound_by} ({work[0] / 1e6:.3f} MB, {work[1] / 1e9:.4f} GOP), share {bound_ms / ms:.3f}")
+                     "max_abs_err": err[name], "ms": one["ms"], "plain_ms": one["plain_ms"],
+                     "bound_ms": one["bound_ms"], "bound_by": one["bound_by"], "share": one["share"],
+                     "library_ms": None, f"b{N_STREAMS}": measured[name, N_STREAMS]})
     return rows
 
 
@@ -389,7 +414,7 @@ def phase_slam(seq, cfg):
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"slam checks failed: {failed}")
-    return launches
+    return launches, poses, float(np.median(steady))
 
 
 def timed(fn):
@@ -796,7 +821,180 @@ def phase_loop():
     log(f"[loop] two runs bit-identical (ATE and sum of camera centres): {same}")
 
 
+def ba_window(seed: int, P: int = 16, M: int = 2048, O: int = 8192):
+    """A local-BA window of the size of a KITTI-scale local map, as numpy:
+    16 keyframes (4 fixed) along a line, 2048 points, 8192 observations with
+    0.5 px noise."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[718.856, 0, 607.19], [0, 718.856, 185.22], [0, 0, 1]], np.float32)
+    pts = np.stack([rng.uniform(-10, 10, M), rng.uniform(-3, 3, M), rng.uniform(5, 40, M)], -1)
+    R = np.tile(np.eye(3, dtype=np.float32), (P, 1, 1))
+    t = np.stack([np.array([0.5 * i, 0, 0], np.float32) for i in range(P)])
+    op = rng.integers(0, P, O)
+    oj = rng.integers(0, M, O)
+    Xc = pts[oj] + t[op]
+    uv = K[:2, :2].diagonal() * Xc[:, :2] / Xc[:, 2:] + K[:2, 2]
+    uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    pts0 = (pts + rng.normal(0, 0.05, pts.shape)).astype(np.float32)
+    return (K, R, t, pts0, op, oj, uv, np.ones(O, np.float32), np.ones(O, bool),
+            np.arange(P) < 4, np.ones(M, bool))
+
+
+def phase_multistream(cfg):
+    """The batched multi-stream step at S=8 against each stream alone, its
+    time and launches at S=1 and S=8, and the batched local BA."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import optim
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
+    from ceres_mono_orb_slam2_tpu_torch.parallel import multistream as ms
+
+    S = N_STREAMS
+    images, state = ms.synthetic_stream_state(cfg, S, MAP_POINTS, seed=0, h=H, w=W, device="cuda")
+    step = ms.make_multistream_step(cfg, H, W, device="cuda")
+    images = torch.from_numpy(np.clip(images + 0.5, 0.0, 255.0).astype(np.uint8)).cuda()
+    alone = lambda s: (images[s:s + 1], ms.StreamState(*(a[s:s + 1] for a in state)))  # noqa: E731
+    step(images, state)  # warm-up
+    k.reset_launch_counts()
+    res = step(images, state)
+    torch.cuda.synchronize()
+    launches = dict(k.launch_counts)
+    singles = [step(*alone(s)) for s in range(S)]
+    err_R = max(float((singles[s].Rcw[0] - res.Rcw[s]).abs().max()) for s in range(S))
+    err_t = max(float((singles[s].tcw[0] - res.tcw[s]).abs().max()) for s in range(S))
+    n_m, n_i = res.n_matches.tolist(), res.n_inliers.tolist()
+    n_m1 = [int(r.n_matches[0]) for r in singles]
+    n_i1 = [int(r.n_inliers[0]) for r in singles]
+    log(f"[multistream] {W}x{H}, {cfg.orb.n_features} features, {MAP_POINTS} map points a stream, S={S}: "
+        f"matches {n_m} (alone {n_m1}), inliers {n_i} (alone {n_i1}); batched against alone: "
+        f"max |R - R1| {err_R:.2e}, max |t - t1| {err_t:.2e}; kernel launches of one step {launches}")
+    timing = {}
+    for n, args in ((1, alone(0)), (S, (images, state))):
+        run = lambda: step(*args)  # noqa: E731
+        ms_all = [timed(run)[1] for _ in range(5)]
+        timing[n] = (float(np.median(ms_all)), device_launches(run))
+        log(f"[multistream] step at S={n}: {timing[n][0]:.2f} ms (median of 5: {[round(m, 1) for m in ms_all]}), "
+            f"{n / timing[n][0] * 1e3:.2f} frames/s in aggregate, {timing[n][1]} device launches")
+    log(f"[multistream] device launches S={S} / S=1: {timing[S][1] / timing[1][1]:.3f}; "
+        f"step ms S={S} / S=1: {timing[S][0] / timing[1][0]:.3f}")
+
+    # the batched local BA: 8 windows in one solve against 8 single solves
+    probs = [ba_window(s) for s in range(S)]
+    one = [tuple(_dev(a) for a in p) for p in probs]
+    batch = (one[0][0],) + tuple(torch.stack([p[i] for p in one]) for i in range(1, 11))
+    solve_batch = lambda: ms.make_multistream_local_ba()(*batch)  # noqa: E731
+    solve_each = lambda: [optim.bundle_adjustment(*p) for p in one]  # noqa: E731
+    solve_batch(), solve_each()  # warm-up
+    rb, ms_b = timed(solve_batch)
+    rs, ms_s = timed(solve_each)
+    centre = lambda R, t: -(R.transpose(-1, -2) @ t[..., None])[..., 0]  # noqa: E731
+    err_c = max(float((centre(rb.R[s], rb.t[s]) - centre(rs[s].R, rs[s].t)).abs().max()) for s in range(S))
+    err_p = max(float((rb.points[s] - rs[s].points).abs().max()) for s in range(S))
+    same_inl = all(torch.equal(rb.inlier_obs[s], rs[s].inlier_obs) for s in range(S))
+    rel_cost = max(abs(float(rb.cost[s]) / float(rs[s].cost) - 1.0) for s in range(S))
+    log(f"[multistream] batched local BA, S={S} x (P=16, M=2048, O=8192): {ms_b:.1f} ms, "
+        f"{device_launches(solve_batch)} launches; {S} single solves {ms_s:.1f} ms, "
+        f"{device_launches(solve_each)} launches; per stream against its single solve: camera centres "
+        f"within {err_c:.2e}, points within {err_p:.2e}, relative cost within {rel_cost:.2e}, "
+        f"inlier observations equal: {same_inl}")
+    checks = {
+        "match counts equal to each stream alone": n_m == n_m1,
+        "inlier counts equal to each stream alone": n_i == n_i1,
+        "every stream matches and solves": min(n_m) > 100 and min(n_i) > 100,
+        "R within 1e-5 and t within 1e-4 of each stream alone": err_R < 1e-5 and err_t < 1e-4,
+        "one launch of each kernel per step": launches == {"fast_nms": 1, "gather_patches": 1},
+        "launches at S=8 below twice those at S=1": timing[S][1] < 2 * timing[1][1],
+        "BA camera centres within 1e-3 and points within 5e-2 of the single solves":
+            err_c < 1e-3 and err_p < 5e-2,
+        "BA costs within 1e-3 relative": rel_cost < 1e-3,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"multistream checks failed: {failed}")
+    return launches, 1
+
+
+def phase_multisystem(seq, cfg, serial_poses, serial_median_ms):
+    """`MultiStreamSLAM` with 8 streams over 60 rendered KITTI-width frames
+    each: stream 0 is the spiral that the serial MonoSLAM of phase 4 ran, the
+    others the same ring world under other steps along the spiral and other
+    ring worlds (seeds) under the same motion."""
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
+    from ceres_mono_orb_slam2_tpu_torch.parallel.multisystem import MultiStreamSLAM
+    from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse, make_rendered_sequence
+
+    S = N_STREAMS
+    t0 = time.perf_counter()
+    variants = [(11, 0.05), (11, 0.055), (11, 0.065), (11, 0.07), (12, 0.06), (13, 0.06), (11, 0.0525)]
+    seqs = [seq] + [make_rendered_sequence(N_FRAMES, H, W, 500.0, 500.0, motion="spiral", step=step,
+                                           seed=seed, device="cuda") for seed, step in variants]
+    log(f"[multisystem] rendered {S - 1} more sequences of {N_FRAMES} frames {W}x{H} (seed, step) "
+        f"{variants} in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    system = MultiStreamSLAM(cfg, n_streams=S, device="cuda")
+    k.reset_launch_counts()
+    poses, frame_ms = [[] for _ in range(S)], []
+    for i in range(N_FRAMES):
+        res, ms = timed(lambda: system.track_batch([q.images[i] for q in seqs],
+                                                   [float(q.timestamps[i]) for q in seqs]))
+        frame_ms.append(ms)
+        for s in range(S):
+            poses[s].append(res[s])
+    launches = dict(k.launch_counts)
+    system.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+
+    centre = lambda T: -T[:3, :3].T @ T[:3, 3]  # noqa: E731
+    same_decisions = all((a is None) == (b is None) for a, b in zip(serial_poses, poses[0]))
+    err0 = max((float(np.linalg.norm(centre(a) - centre(b)))
+                for a, b in zip(serial_poses, poses[0]) if a is not None and b is not None),
+               default=float("inf"))
+    first, frac, ate = [], [], []
+    for s in range(S):
+        tracked = [T is not None for T in poses[s]]
+        first.append(tracked.index(True) if any(tracked) else N_FRAMES)
+        frac.append(sum(tracked[first[s]:]) / max(N_FRAMES - first[s], 1))
+        est = np.asarray([centre(T) for T in poses[s] if T is not None])
+        gt = seqs[s].gt_centers()[np.asarray(tracked)]
+        traj = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()) if len(gt) > 1 else 0.0
+        ate.append(100.0 * ate_rmse(est, gt) / traj if traj > 0 else float("inf"))
+    ph = system.phase_s
+    n_b = max(ph["frames"], 1)
+    steady = np.asarray(frame_ms[10:])
+    log(f"[multisystem] S={S}, {N_FRAMES} frames a stream: n_batched_frames {system.n_batched_frames}, "
+        f"n_single_frames {system.n_single_frames}, launches {launches}; init frames {first}, tracked after "
+        f"init {[round(100 * f, 1) for f in frac]} %, ATE {[round(a, 4) for a in ate]} %, keyframes "
+        f"{[m.map.n_keyframes() for m in system.streams]}, map points "
+        f"{[m.map.n_map_points() for m in system.streams]}")
+    log(f"[multisystem] stream 0 against the serial run: decisions equal {same_decisions}, camera centres "
+        f"within {err0:.3e}")
+    log(f"[multisystem] per batched frame (mean of {ph['frames']}): prepare {ph['prepare'] / n_b * 1e3:.1f} ms, "
+        f"dispatch {ph['dispatch'] / n_b * 1e3:.1f} ms, fetch {ph['fetch'] / n_b * 1e3:.1f} ms, consume "
+        f"(with local mapping) {ph['consume'] / n_b * 1e3:.1f} ms; batch frame ms (frames 10+): median "
+        f"{np.median(steady):.2f}, p95 {np.percentile(steady, 95):.2f} = {S / np.median(steady) * 1e3:.2f} "
+        f"frames/s in aggregate, beside {1e3 / serial_median_ms:.2f} frames/s of the serial run (median "
+        f"frame {serial_median_ms:.2f} ms); peak device memory {peak / 1e6:.1f} MB")
+    n_calls = system.n_batched_frames + system.n_single_frames
+    checks = {
+        "stream 0 makes the serial run's decisions": same_decisions,
+        "stream 0's camera centres within 1e-3 of the serial run": err0 < 1e-3,
+        "every stream initialises within 10 frames": max(first) < 10,
+        "every stream tracks >= 90% after init": min(frac) >= 0.9,
+        "every stream's ATE < 1% of its trajectory": max(ate) < 1.0,
+        "n_batched_frames >= 40": system.n_batched_frames >= 40,
+        "fast_nms launched once per batched and per single-path frame": launches["fast_nms"] == n_calls,
+        "gather_patches launched once per batched and per single-path frame":
+            launches["gather_patches"] == n_calls,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"multisystem checks failed: {failed}")
+    return launches, n_calls
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default="", help="comma-separated later phases to run after the build "
+                    "and the spiral (bow, solvers, reloc, loop, multistream, multisystem); default all")
+    only = [name for name in ap.parse_args().only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -806,20 +1004,25 @@ def main() -> int:
     seq = render_sequence()
     rows = phase_kernels(seq, cfg)
     phase_ba()
-    paths = {"spiral": (phase_slam(seq, cfg), N_FRAMES)}
+    spiral_launches, spiral_poses, spiral_median = phase_slam(seq, cfg)
+    paths = {"spiral": (spiral_launches, N_FRAMES)}
     for name, phase in (("bow", lambda: phase_bow(seq, cfg)), ("solvers", phase_solvers),
-                        ("reloc", phase_reloc), ("loop", phase_loop)):
+                        ("reloc", phase_reloc), ("loop", phase_loop),
+                        ("multistream", lambda: phase_multistream(cfg)),
+                        ("multisystem", lambda: phase_multisystem(seq, cfg, spiral_poses, spiral_median))):
+        if only and name not in only:
+            continue
         path, ms = timed(phase)
         log(f"[{name}] phase took {ms / 1e3:.1f} s")
-        if path is not None:  # (launches, frames) of a path that extracts from pixels
+        if path is not None:  # (launches, extractions) of a path that extracts from pixels
             paths[name] = path
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(smi.splitlines()[0])
-    n_frames = sum(n for _, n in paths.values())
+    n_extractions = sum(n for _, n in paths.values())
     for r in rows:  # launches summed over every path that extracts from pixels
         r["launches"] = sum(counts[r["name"]] for counts, _ in paths.values())
-        r["launches_per_frame"] = r["launches"] / n_frames
+        r["launches_per_extraction"] = r["launches"] / n_extractions
         r["launches_by_path"] = {name: counts[r["name"]] for name, (counts, _) in paths.items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -48,6 +48,17 @@ Rcw, tcw = make_geo_trajectory(3, "circle", 0.1)
 gx = GeoExtractor(GeoWorld(np.random.default_rng(0), 300, shape="ring"), SlamConfig().camera.K,
                   Rcw, tcw, 100, 480, 640, device="cpu")
 assert gx.extract(frame_image(1)).xy.shape == (1, 100, 2)
+# the multi-stream slice: S systems behind one batched front end
+from ceres_mono_orb_slam2_tpu_torch.parallel.multistream import make_multistream_step, synthetic_stream_state
+from ceres_mono_orb_slam2_tpu_torch.parallel.multisystem import MultiStreamSLAM
+ms = MultiStreamSLAM(SlamConfig(), n_streams=2, device="cpu")
+assert len(ms.streams) == 2 and ms.streams[1].tracker.extractor is ms.extractor
+assert ms.track_batch([np.zeros((96, 128), np.uint8)] * 2, [0.0, 0.0]) == [None, None]
+assert ms.n_single_frames == 2 and ms.n_batched_frames == 0
+cfg = SlamConfig(orb=ORBConfig(n_features=200))
+images, state = synthetic_stream_state(cfg, 2, 64, h=96, w=128, device="cpu")
+res = make_multistream_step(cfg, 96, 128, device="cpu")(images, state)
+assert res.Rcw.shape == (2, 3, 3) and res.n_matches.shape == (2,)
 assert not any(name == "jax" or name.startswith("jax.") for name, mod in sys.modules.items()
                if mod is not None)
 print("OK")
@@ -129,3 +140,40 @@ def test_slice_three_modules_exist_under_the_reference_names():
     from ceres_mono_orb_slam2_tpu_torch.models.tracking import Tracking
 
     assert hasattr(Tracking, "_relocalization") and "relocalizer" in Tracking.__init__.__code__.co_varnames
+
+
+def test_slice_four_modules_exist_under_the_reference_names():
+    """The one-card half of `parallel/` and the prepare / finish / consume
+    split of the fused path have their counterparts under the same names."""
+    names = {
+        "parallel.multistream": ["StreamState", "StepResult", "make_multistream_step",
+                                 "synthetic_stream_state", "make_multistream_local_ba"],
+        "parallel.multisystem": ["MultiStreamSLAM"],
+        "models.tracking": ["Tracking"],
+        "utils.convert": ["stream_state_from_reference"],
+    }
+    for mod, attrs in names.items():
+        tm = importlib.import_module(f"ceres_mono_orb_slam2_tpu_torch.{mod}")
+        missing = [a for a in attrs if not hasattr(tm, a)]
+        assert not missing, (mod, missing)
+        if mod != "utils.convert":
+            jm = importlib.import_module(f"ceres_mono_orb_slam2_tpu.{mod}")
+            assert all(hasattr(jm, a) for a in attrs), mod
+    from ceres_mono_orb_slam2_tpu.models.tracking import Tracking as JaxTracking
+    from ceres_mono_orb_slam2_tpu.parallel.multistream import StepResult as JaxStepResult
+    from ceres_mono_orb_slam2_tpu.parallel.multistream import StreamState as JaxStreamState
+    from ceres_mono_orb_slam2_tpu.parallel.multisystem import MultiStreamSLAM as JaxMultiStreamSLAM
+    from ceres_mono_orb_slam2_tpu_torch.models.tracking import Tracking
+    from ceres_mono_orb_slam2_tpu_torch.parallel.multistream import StepResult, StreamState
+    from ceres_mono_orb_slam2_tpu_torch.parallel.multisystem import MultiStreamSLAM
+
+    for name in ("_fused_prepare", "_fused_finish", "_fused_consume", "_grab_fused"):
+        assert hasattr(Tracking, name) and hasattr(JaxTracking, name), name
+    assert StreamState._fields == JaxStreamState._fields
+    assert StepResult._fields == JaxStepResult._fields
+    for name in ("track_batch", "_finish_stream", "shutdown"):
+        assert hasattr(MultiStreamSLAM, name) and hasattr(JaxMultiStreamSLAM, name), name
+    ms = MultiStreamSLAM(port.utils.config.SlamConfig(), n_streams=2, device="cpu")
+    for name in ("n_batched_frames", "n_single_frames", "phase_s", "streams"):
+        assert hasattr(ms, name), name
+    assert set(ms.phase_s) == {"prepare", "dispatch", "fetch", "consume", "frames"}

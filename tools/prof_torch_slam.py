@@ -1,7 +1,7 @@
 """Where the port's per-frame time goes, on one CUDA device.
 
     python tools/prof_torch_slam.py [--frames 30] [--warmup 15] [--prof-frames 4]
-                                    [--out prof_out] [--vocab]
+                                    [--out prof_out] [--vocab] [--streams S]
 
 Renders the spiral ring world at 1241x376 (the chip_smoke.py sequence) and
 runs the serial MonoSLAM on the GPU three times, measuring the frames after
@@ -20,6 +20,11 @@ With `--vocab` the system runs with a vocabulary trained on every fourth
 frame's descriptors (k=10, levels=4), so that the BoW transform and the loop
 closer's queue run on every keyframe; pass 1 then also reports the loop
 closer's share of a frame and the summary its counters.
+With `--streams S` (S > 1) the same three passes run `MultiStreamSLAM` with S
+streams (the spiral under S seeds and steps) and measure a batch frame: its
+wall time and its split into prepare / dispatch / fetch / consume
+(`phase_s`), device launches and device time per batch frame, the device
+busy share, and the host's cumulative times.
 Writes `summary.json`, `ops.txt` and `cprofile.txt` under --out and prints
 the summary. Needs a CUDA device.
 """
@@ -83,6 +88,101 @@ def _train_vocabulary(seq, cfg):
                                 device="cuda")
 
 
+STREAM_VARIANTS = [(11, 0.06), (11, 0.05), (11, 0.055), (11, 0.065), (11, 0.07), (12, 0.06),
+                   (13, 0.06), (11, 0.0525)]  # (seed, step) of each stream's spiral
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def profile_streams(args, h: int, w: int) -> int:
+    """The three passes over `MultiStreamSLAM` with args.streams streams."""
+    from ceres_mono_orb_slam2_tpu_torch.parallel.multisystem import MultiStreamSLAM
+
+    S = args.streams
+    seqs = [make_rendered_sequence(args.frames, h, w, 500.0, 500.0, motion="spiral", step=step,
+                                   seed=seed, device="cuda")
+            for seed, step in (STREAM_VARIANTS * S)[:S]]
+    window = range(args.warmup, args.frames)
+
+    def batch_frame(system, i):
+        t0 = time.perf_counter()
+        system.track_batch([q.images[i] for q in seqs], [float(q.timestamps[i]) for q in seqs])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def fresh():
+        system = MultiStreamSLAM(_config(h, w), n_streams=S, device="cuda")
+        for i in range(args.warmup):
+            batch_frame(system, i)
+        system.phase_s.update(prepare=0.0, dispatch=0.0, fetch=0.0, consume=0.0, frames=0)
+        return system
+
+    # pass 1: wall clock and the system's own phase split, no profiler
+    system = fresh()
+    frame_ms = np.asarray([batch_frame(system, i) for i in window])
+    ph = dict(system.phase_s)
+    n_b = max(ph["frames"], 1)
+    phase_ms = {k: ph[k] / n_b * 1e3 for k in ("prepare", "dispatch", "fetch", "consume")}
+    print(f"pass 1: batch frame ms median {np.median(frame_ms):.2f} over {len(frame_ms)} frames "
+          f"({ph['frames']} batched); per batched frame {phase_ms}", flush=True)
+    # pass 2: torch.profiler over the first frames of the window
+    system = fresh()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    pw = window[:args.prof_frames]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in pw:
+            batch_frame(system, i)
+    prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    orb_launches = {k: v / len(pw) for k, v in kernels.launch_counts.items()}
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    print(f"pass 2: {len(dev_events) / len(pw):.0f} launches/batch frame, device "
+          f"{dev_ms / len(pw):.2f} ms of {prof_wall_ms / len(pw):.2f} ms profiled", flush=True)
+    evs = prof.key_averages()
+    dev_key = ("self_device_time_total" if hasattr(evs[0], "self_device_time_total")
+               else "self_cuda_time_total")
+    with open(os.path.join(args.out, "ops.txt"), "w") as f:
+        f.write(evs.table(sort_by=dev_key, row_limit=30))
+        f.write("\n")
+        f.write(evs.table(sort_by="self_cpu_time_total", row_limit=30))
+    # pass 3: cProfile over the window of a fresh run
+    system = fresh()
+    pr = cProfile.Profile()
+    pr.enable()
+    for i in window:
+        batch_frame(system, i)
+    pr.disable()
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(45)
+    with open(os.path.join(args.out, "cprofile.txt"), "w") as f:
+        f.write(buf.getvalue())
+    summary = {
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": _smi(), "streams": S,
+        "stream_variants_seed_step": (STREAM_VARIANTS * S)[:S],
+        "frames_profiled": len(frame_ms), "batched_frames": ph["frames"],
+        "batch_frame_ms_median": float(np.median(frame_ms)),
+        "batch_frame_ms_p95": float(np.percentile(frame_ms, 95)),
+        "aggregate_frames_per_s": S / float(np.median(frame_ms)) * 1e3,
+        "phase_ms_per_batched_frame": phase_ms,
+        "frames_under_torch_profiler": len(pw),
+        "profiled_wall_ms_per_batch_frame": prof_wall_ms / len(pw),
+        "device_kernel_ms_per_batch_frame": dev_ms / len(pw),
+        "kernel_launches_per_batch_frame": len(dev_events) / len(pw),
+        "orb_kernel_launches_per_batch_frame": orb_launches,
+        "device_busy_share_under_profiler": dev_ms / prof_wall_ms,
+    }
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps(summary, indent=1))
+    print(buf.getvalue()[:6000])
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=30)
@@ -91,12 +191,16 @@ def main() -> int:
     ap.add_argument("--out", default="prof_out")
     ap.add_argument("--vocab", action="store_true",
                     help="run with a trained vocabulary (BoW database and loop closer)")
+    ap.add_argument("--streams", type=int, default=1,
+                    help="S > 1: profile MultiStreamSLAM with S streams instead of the serial MonoSLAM")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("prof_torch_slam: no CUDA device", file=sys.stderr)
         return 1
     os.makedirs(args.out, exist_ok=True)
     h, w = 376, 1241
+    if args.streams > 1:
+        return profile_streams(args, h, w)
     seq = make_rendered_sequence(args.frames, h, w, 500.0, 500.0, motion="spiral", step=0.06,
                                  seed=11, device="cuda")
     window = range(args.warmup, args.frames)
@@ -166,9 +270,7 @@ def main() -> int:
 
     summary = {
         "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60).stdout.strip(),
+        "nvidia_smi": _smi(),
         "frames_profiled": n,
         "frame_ms_median": float(np.median(split.sum(1))),
         "tracking_ms_median": float(np.median(split[:, 0])),
