@@ -2,14 +2,17 @@
 
 Port of `ceres_mono_orb_slam2_tpu/models/frame.py`. Holds one image's
 keypoint/descriptor tensors on the device (`j_*`) and their host numpy
-copies, which a lazy frame fetches with `.cpu()` on first access: an ordinary
-fused-path frame that never becomes a keyframe copies only its control
-outputs to the host.
+copies, which a lazy frame fetches on first access: an ordinary fused-path
+frame that never becomes a keyframe copies only its control outputs to the
+host. A keyframe's promotion starts the copy early
+(`start_host_copy_async`), and a per-frame lock makes the first access from
+two threads (tracker and mapper) fetch once.
 """
 
 from __future__ import annotations
 
 import itertools
+import threading
 
 import numpy as np
 import torch
@@ -55,6 +58,10 @@ class Frame:
         self._j_und = j_und
         self._j_bits = None
         self._host_pending = True
+        # guards the lazy host copy and the lazy j_und / j_bits fills, which
+        # the tracker and the mapper thread may reach at once
+        self._lock = threading.RLock()
+        self._host_copy = None  # (pinned host tensors, event) of a started copy
         if not lazy:
             self._materialize_host()
 
@@ -65,15 +72,44 @@ class Frame:
         self.tcw = np.zeros(3, np.float32)
         self.pose_set = False
 
+    def _payload_tensors(self):
+        return (self.j_xy, self.j_octave, self.j_angle, self._j_response, self.j_desc,
+                self.j_valid, self.j_und)
+
+    def start_host_copy_async(self):
+        """Start the device-to-host copy of the keypoint payload without
+        waiting for it: on CUDA, non-blocking copies into pinned host tensors
+        and an event recorded behind them, which the first host access waits
+        on. The tracker calls this when the frame becomes a keyframe, so the
+        mapper thread's first read finds the payload on the host. A no-op on
+        the CPU, once started, or once materialised."""
+        with self._lock:
+            if not self._host_pending or self._host_copy is not None or self.device.type != "cuda":
+                return
+            host = tuple(torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                         for a in self._payload_tensors())
+            for dst, src in zip(host, self._payload_tensors()):
+                dst.copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            self._host_copy = (host, done)
+
     def _materialize_host(self):
         if not self._host_pending:
             return
-        (self._kp_xy, self._kp_octave, self._kp_angle, self._kp_response,
-         self._desc, self._kp_valid, self._kp_und) = (
-            a.cpu().numpy() for a in (self.j_xy, self.j_octave, self.j_angle,
-                                      self._j_response, self.j_desc, self.j_valid,
-                                      self.j_und))
-        self._host_pending = False
+        with self._lock:
+            if not self._host_pending:
+                return
+            if self._host_copy is not None:
+                host, done = self._host_copy
+                done.synchronize()
+                arrays = tuple(a.numpy() for a in host)
+            else:
+                arrays = tuple(a.cpu().numpy() for a in self._payload_tensors())
+            (self._kp_xy, self._kp_octave, self._kp_angle, self._kp_response,
+             self._desc, self._kp_valid, self._kp_und) = arrays
+            self._host_copy = None
+            self._host_pending = False
 
     @property
     def device(self) -> torch.device:
@@ -82,19 +118,23 @@ class Frame:
     @property
     def j_und(self):
         if self._j_und is None:
-            cam = self._cam
-            if cam.has_distortion:
-                self._j_und = camera.undistort_points(
-                    self.j_xy, torch.as_tensor(cam.K, device=self.device),
-                    torch.as_tensor(cam.dist_coeffs, device=self.device))
-            else:
-                self._j_und = self.j_xy
+            with self._lock:
+                if self._j_und is None:
+                    cam = self._cam
+                    if cam.has_distortion:
+                        self._j_und = camera.undistort_points(
+                            self.j_xy, torch.as_tensor(cam.K, device=self.device),
+                            torch.as_tensor(cam.dist_coeffs, device=self.device))
+                    else:
+                        self._j_und = self.j_xy
         return self._j_und
 
     @property
     def j_bits(self):
         if self._j_bits is None:
-            self._j_bits = matcher.unpack_bits_pm1(self.j_desc)
+            with self._lock:
+                if self._j_bits is None:
+                    self._j_bits = matcher.unpack_bits_pm1(self.j_desc)
         return self._j_bits
 
     @property

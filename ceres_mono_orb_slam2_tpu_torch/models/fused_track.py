@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ceres_mono_orb_slam2_tpu_torch.ops import camera, frustum, matcher, optim
+from ceres_mono_orb_slam2_tpu_torch.ops import camera, frustum, lie, matcher, optim
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -89,6 +89,17 @@ def unpack_control(packed: np.ndarray, L: int):
     return (R, t, (kp & 0xFFFF).astype(np.int32), bit(kp, 16), bit(kp, 17), n1, ninl1,
             (loc & 0xFFFF).astype(np.int32), bit(loc, 16), bit(loc, 17),
             bit(kp, 18), bit(kp, 19), ninl2, bit(kp, 20))
+
+
+def chained_prediction(pR: torch.Tensor, pt: torch.Tensor, ppR: torch.Tensor, ppt: torch.Tensor):
+    """Constant-velocity prediction of a chained (pipelined) frame from the
+    two previous poses, on the device: Rv = pR ppR^T, tv = pt - Rv ppt, then
+    (Rv pR, Rv pt + tv). Both rotations are projected onto SO(3), which
+    keeps the composition from compounding f32 determinant drift. Returns
+    (R_pred (3, 3), t_pred (3,))."""
+    Rv = lie.so3_project(pR @ ppR.transpose(-1, -2))
+    tv = pt - Rv @ ppt
+    return lie.so3_project(Rv @ pR), Rv @ pt + tv
 
 
 def _scatter_rows(n: int, idx_safe: torch.Tensor, src: torch.Tensor, fill):

@@ -74,7 +74,10 @@ def run_global_ba(m, config, loop_kf_id: int, n_iters: int = 50, stop_cb=None,
 
     The reference aborts Ceres between iterations through a callback; here
     the LM loop runs in `chunk`-iteration solver calls and `stop_cb()` is
-    checked between chunks. Past `DENSE_BA_MAX_BLOCKS` pose-point pairs, or
+    checked between chunks, on the thread that solves (the loop closer's
+    `gba` thread in threaded mode; the flags it reads are set by the loop
+    closer's own thread). The map lock is held only for the snapshot and
+    the apply, never during the solve. Past `DENSE_BA_MAX_BLOCKS` pose-point pairs, or
     with `force_cg`, the matrix-free CG solver replaces the dense Schur one.
     `stats`, when given, receives P, M, O and the solver taken.
 

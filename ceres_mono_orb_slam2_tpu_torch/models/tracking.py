@@ -1,14 +1,27 @@
-"""Tracking: the per-frame state machine (reference src/Tracking.cc), serial.
+"""Tracking: the per-frame state machine (reference src/Tracking.cc).
 
-Port of the serial path of `ceres_mono_orb_slam2_tpu/models/tracking.py`:
-monocular initialization, the motion model, reference-keyframe tracking,
-local-map tracking, the fused hot path (`models/fused_track`) against the
-device map pool (split into `_fused_prepare` / `_fused_finish` /
-`_fused_consume`, so that `parallel/multisystem.py` can batch the device
-phase of several streams), the keyframe decision, relocalization against a
-BoW keyframe database and the trajectory log. Pipelined tracking waits for a
-later port; without a relocalizer a lost frame stays lost, as in the JAX
-package with no vocabulary.
+Port of `ceres_mono_orb_slam2_tpu/models/tracking.py`: monocular
+initialization, the motion model, reference-keyframe tracking, local-map
+tracking, the fused hot path (`models/fused_track`) against the device map
+pool (split into `_fused_prepare` / `_fused_dispatch` / `_fused_consume`, so
+that `parallel/multisystem.py` can batch the device phase of several
+streams), the keyframe decision, relocalization against a BoW keyframe
+database and the trajectory log; without a relocalizer a lost frame stays
+lost, as in the JAX package with no vocabulary.
+
+Every read and write of the map by the tracker runs under
+`map.update_lock`, which a mapper thread takes per stage. A fused frame
+takes it for its two host phases (prepare, consume) and releases it around
+its device phase, which reads device tensors only (the extraction, the
+pool's gathered block, the last frame's features): as local mapping
+releases it around its device solves, so the two threads' device work
+overlaps. A loop correction or a global-BA apply that lands in that device
+phase rewrites the poses the frame was solved against: the frame is then
+tracked again under the lock (`_retrack_if_corrected`). A non-fused frame
+extracts without the lock and tracks under it.
+With `pipelined=True` frame k's fused step is dispatched before frame k-1's
+control buffer is consumed (`_grab_pipelined`): the prediction and the
+last-frame bindings chain on the device, and a pose returns one frame late.
 """
 
 from __future__ import annotations
@@ -44,7 +57,8 @@ class State(enum.Enum):
 
 class Tracking:
     def __init__(self, config, map_: Map, extractor, local_mapper=None, relocalizer=None,
-                 device=DEFAULT_DEVICE, generator: Optional[torch.Generator] = None):
+                 device=DEFAULT_DEVICE, generator: Optional[torch.Generator] = None,
+                 pipelined: bool = False):
         self.config = config
         self.map = map_
         self.extractor = extractor
@@ -91,6 +105,20 @@ class Tracking:
         self._fused_step = None
         self.n_fused_frames = 0
 
+        # pipelined mode: the in-flight frame (its device outputs, started
+        # control copy, host context and the chain guards at its dispatch)
+        self.pipelined = bool(pipelined)
+        self._pending: Optional[dict] = None
+        self._chain_len = 0
+        self.n_chained_frames = 0
+        # in-flight frames whose device result was thrown away and which
+        # were tracked again from their image (each extracts once more)
+        self.n_discarded_chained = 0
+        # every frame tracked again from its image, in any mode: the
+        # pipelined discards, and fused frames under which a loop correction
+        # or a global-BA apply landed during the unlocked device phase
+        self.n_retracked_frames = 0
+
     # ------------------------------------------------------------------ utils
 
     def _dev(self, a, dtype=None):
@@ -117,14 +145,15 @@ class Tracking:
         # track 8-bit grayscale like the reference; quantise float input
         if image.dtype != np.uint8:
             image = np.clip(image + 0.5, 0.0, 255.0).astype(np.uint8)
-        if self._can_fuse():
-            self._grab_fused(image, timestamp)
-        else:
-            self.current = self.build_frame(image, timestamp)
-            self._track()
+        if self.pipelined:
+            return self._grab_pipelined(image, timestamp)
+        self._track_serial(image, timestamp)
+        return self._last_T()
+
+    def _last_T(self):
+        """Tcw (4, 4) of the current (last consumed) frame, or None."""
         f = self.current
-        self.last_frame = f
-        if f.pose_set:
+        if f is not None and f.pose_set:
             T = np.eye(4, dtype=np.float32)
             T[:3, :3] = f.Rcw
             T[:3, 3] = f.tcw
@@ -203,8 +232,12 @@ class Tracking:
         extraction + pool gather + fused step on the device, ONE packed
         control copy back, then host bookkeeping (TrackWithMotionModel +
         TrackLocalMap, Tracking.cc:617-715). Falls back to reference-keyframe
-        tracking when the motion-model gates fail."""
-        self._fused_finish(*self._fused_prepare(image, timestamp))
+        tracking when the motion-model gates fail. The host phases hold
+        map.update_lock; the device phase does not, so a correction that
+        lands in it makes the frame be tracked again (`_retrack_if_corrected`)."""
+        with self.map.update_lock:
+            args, aux = self._fused_prepare(image, timestamp)
+        self._fused_finish(args, aux)
 
     def _fused_prepare(self, image: np.ndarray, timestamp: float):
         """Host phase 1 of the fused path: motion prediction, pool delta
@@ -243,27 +276,50 @@ class Tracking:
         ids_snap[: len(slots)] = pool.id_of[slots]
         args = (image, lf.j_octave, lf.j_angle, lf.j_desc, last_pos, last_ok, last_local_row,
                 R_pred, t_pred, th_local, slots_padded, pool, self.j_bounds)
-        aux = (t0, lf, local_kfs, slots, L, timestamp, ids_snap)
+        aux = (t0, lf, local_kfs, slots, L, timestamp, ids_snap, self.map.correction_epoch)
         return args, aux
 
     def _fused_finish(self, args, aux):
-        """Single-stream device phase and host phase 2: extraction, pool
-        gather and the fused step, one packed control copy to the host,
-        then `_fused_consume`."""
+        """Single-stream device phase and host phase 2: `_fused_dispatch`,
+        one packed control copy to the host, then `_fused_consume` under
+        map.update_lock."""
+        out, f1, ctl, _ = self._fused_dispatch(args)
+        host = ctl.cpu().numpy()
+        with self.map.update_lock:
+            if not self._retrack_if_corrected(args[0], aux[5], aux[-1]):
+                self._fused_consume(aux, out, f1, host)
+
+    def _retrack_if_corrected(self, image: np.ndarray, timestamp: float, epoch: int) -> bool:
+        """Track a frame again, as a serial frame, when a loop correction
+        or a global-BA apply rewrote keyframe poses after its prepare
+        (`Map.correction_epoch` moved from `epoch`): its device outputs mix the
+        old geometry with the new poses, and its trajectory entry would be
+        re-based on a corrected keyframe. Call under map.update_lock, which
+        the re-track keeps, so no second correction lands in it. True when
+        it re-tracked."""
+        if self.map.correction_epoch == epoch:
+            return False
+        self.n_retracked_frames += 1
+        self._track_serial(image, timestamp)
+        return True
+
+    def _fused_dispatch(self, args):
+        """The device phase of one fused frame, enqueued and not waited for:
+        extraction, pool gather, the fused step and its packed control
+        buffer. Returns (out, feats, ctl, local block): the gathered block
+        is what a chained frame of the pipelined mode matches against."""
         from ceres_mono_orb_slam2_tpu_torch.models import fused_track
 
         (image, last_oct, last_angle, last_desc, last_pos, last_ok, last_local_row,
          R_pred, t_pred, th_local, slots_padded, pool, bounds) = args
         feats = self.extractor.extract(image)
         f1 = type(feats)(*(a[0] for a in feats))
-        step = self._ensure_fused_step()
-        out = step(f1.xy, f1.octave, f1.angle, f1.desc, f1.valid,
-                   last_oct, last_angle, last_desc,
-                   self._dev(last_pos), self._dev(last_ok), self._dev(last_local_row),
-                   self._dev(R_pred), self._dev(t_pred),
-                   *pool.gather(slots_padded), bounds, th_local)
-        host = fused_track.pack_control(out, f1.valid).cpu().numpy()
-        self._fused_consume(aux, out, f1, host)
+        lblock = pool.gather(slots_padded)
+        out = self._ensure_fused_step()(
+            f1.xy, f1.octave, f1.angle, f1.desc, f1.valid, last_oct, last_angle, last_desc,
+            self._dev(last_pos), self._dev(last_ok), self._dev(last_local_row),
+            self._dev(R_pred), self._dev(t_pred), *lblock, bounds, th_local)
+        return out, f1, fused_track.pack_control(out, f1.valid), lblock
 
     def _fused_consume(self, aux, out, feats, host):
         """Host phase 2 of the fused path: association bookkeeping, stats,
@@ -272,7 +328,7 @@ class Tracking:
         map.update_lock."""
         from ceres_mono_orb_slam2_tpu_torch.models import fused_track
 
-        t0, lf, local_kfs, slots, L, timestamp, ids_snap = aux
+        t0, lf, local_kfs, slots, L, timestamp, ids_snap, _ = aux
         (R2, t2, m1_idx, m1v, inl1, n1, ninl1, m2_idx, m2v, visible,
          assoc, inl2, ninl2, h_valid) = fused_track.unpack_control(host, L)
         f = Frame(feats, self.cam, timestamp, lazy=True, j_und=out.und,
@@ -307,6 +363,14 @@ class Tracking:
         rows2 = np.nonzero(m2v)[0]
         if len(rows2):
             ids2 = np.asarray(ids_snap[rows2], np.int64)
+            # ids_snap is prepare-time state: with a mapper thread a fuse may
+            # have replaced a point since; bind its replacement
+            alive = self.map.mp_alive
+            known = (ids2 >= 0) & (ids2 < len(alive))
+            dead = ids2 >= 0
+            dead[known] = ~alive[ids2[known]]
+            for q in np.nonzero(dead)[0]:
+                ids2[q] = self.map.resolve(int(ids2[q]))
             keep2 = ids2 >= 0
             f.mp_ids[m2_idx[rows2[keep2]]] = ids2[keep2]
         self._dedup_mp_ids(f.mp_ids)
@@ -355,6 +419,153 @@ class Tracking:
         else:
             ok = self.matches_inliers >= 30
         self._finish_track(ok, t0)
+
+    # -------------------------------------------------------------- pipelined
+
+    @staticmethod
+    def _start_copies(ctl: torch.Tensor):
+        """Start the device-to-host copy of a packed control buffer without
+        waiting: on CUDA into a pinned tensor, with an event that the
+        consume waits on; on the CPU the buffer already is on the host.
+        Returns (host tensor, event or None)."""
+        if ctl.device.type != "cuda":
+            return ctl, None
+        host = torch.empty(ctl.shape, dtype=ctl.dtype, pin_memory=True)
+        host.copy_(ctl, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _guards(self) -> dict:
+        """The map state a dispatched frame saw: a chain extends only while
+        it is unchanged."""
+        m = self.map
+        return {"epoch": m.map_epoch, "nkf": m.n_keyframes(), "corr": m.correction_epoch}
+
+    def _start_pipeline(self, image: np.ndarray, timestamp: float):
+        """Pipeline (re)start from consumed host state: the dispatch a
+        `_grab_fused` frame makes, left in flight with its control copy
+        started."""
+        t0 = time.perf_counter()
+        with self.map.update_lock:
+            args, aux = self._fused_prepare(image, timestamp)
+            guards = self._guards()
+            lf = aux[1]
+            ppR, ppt = self._dev(lf.Rcw), self._dev(lf.tcw)
+        out, feats, ctl, lblock = self._fused_dispatch(args)
+        self._pending = dict(out=out, feats=feats, ctl=self._start_copies(ctl), image=image,
+                             timestamp=timestamp, aux=aux, lblock=lblock, ppR=ppR, ppt=ppt,
+                             disp_s=time.perf_counter() - t0, **guards)
+        self._chain_len = 0
+
+    def _dispatch_chained(self, image: np.ndarray, p: dict):
+        """Frame k's fused step while frame k-1 (`p`) is in flight: the
+        prediction is the constant-velocity composition of k-1's and k-2's
+        poses on the device, the last-frame inputs are k-1's device outputs
+        (`pos_kp`, `ok_next`, `next_local_row`), and the local block is the
+        pipeline start's gather. Returns (out, feats, started copy)."""
+        from ceres_mono_orb_slam2_tpu_torch.models import fused_track
+
+        pout, pfeats = p["out"], p["feats"]
+        R_pred, t_pred = fused_track.chained_prediction(pout.R, pout.t, p["ppR"], p["ppt"])
+        feats = self.extractor.extract(image)
+        f1 = type(feats)(*(a[0] for a in feats))
+        out = self._ensure_fused_step()(
+            f1.xy, f1.octave, f1.angle, f1.desc, f1.valid, pfeats.octave, pfeats.angle, pfeats.desc,
+            pout.pos_kp, pout.ok_next, pout.next_local_row, R_pred, t_pred, *p["lblock"],
+            self.j_bounds, 1.0)
+        return out, f1, self._start_copies(fused_track.pack_control(out, f1.valid))
+
+    def _consume_pending(self):
+        """Wait for the in-flight frame's control copy and consume it (call
+        under map.update_lock). Afterwards `current` and `last_frame` are
+        that frame and nothing is in flight."""
+        p = self._pending
+        if p is None:
+            return
+        self._pending = None
+        if self._retrack_if_corrected(p["image"], p["timestamp"], p["corr"]):
+            self.n_discarded_chained += 1
+            return
+        host, done = p["ctl"]
+        if done is not None:
+            done.synchronize()
+        # forward ids a fuse replaced since the dispatch
+        # (CheckReplacedInLastFrame, Tracking.cc:504-517)
+        self._check_replaced_in_last_frame()
+        # the local block's context is the pipeline start's; the rest is
+        # this frame's own
+        _, _, local_kfs, slots, L, _, ids_snap, corr = p["aux"]
+        # track_ms = this frame's dispatch plus its consume, not the time it
+        # spent in flight
+        t0 = time.perf_counter() - p["disp_s"]
+        self._fused_consume((t0, self.last_frame, local_kfs, slots, L, p["timestamp"], ids_snap, corr),
+                            p["out"], p["feats"], host.numpy())
+        self.last_frame = self.current
+
+    def flush_pipeline(self):
+        """Consume the in-flight frame, if any, so that the trajectory, the
+        map and the stats are current."""
+        with self.map.update_lock:
+            self._consume_pending()
+
+    def _track_serial(self, image: np.ndarray, timestamp: float):
+        """One synchronous frame: the fused path, or an extraction without
+        map.update_lock and tracking under it. The serial mode's frame, and
+        the pipelined mode's frame that cannot chain or fuse."""
+        if self._can_fuse():
+            self._grab_fused(image, timestamp)
+        else:
+            self.current = self.build_frame(image, timestamp)
+            with self.map.update_lock:
+                self._track()
+        self.last_frame = self.current
+
+    def _grab_pipelined(self, image: np.ndarray, timestamp: float):
+        """Per-frame entry of the pipelined mode. Returns the Tcw of the
+        last consumed frame: one frame late while a frame is in flight.
+        Host phases hold map.update_lock; device dispatches do not."""
+        m = self.map
+        with m.update_lock:
+            p = self._pending
+            # the chain extends only while the map is as the in-flight frame
+            # saw it (no point mutation, keyframe insertion or erasure, reset
+            # or correction) and for at most 8 frames, since chained frames
+            # reuse the start's local block; otherwise drain and restart
+            # from the host
+            guards = self._guards()
+            can_chain = (p is not None and not m.mp_dirty and self._chain_len < 8
+                         and guards == {k: p[k] for k in guards})
+            if p is not None and not can_chain:
+                self._consume_pending()
+                p = None
+        if p is None:
+            if self._can_fuse():
+                self._start_pipeline(image, timestamp)
+            else:
+                self._track_serial(image, timestamp)
+            return self._last_T()
+
+        t0 = time.perf_counter()
+        out, feats, ctl = self._dispatch_chained(image, p)
+        # guards as this frame was dispatched: a change after it (a keyframe
+        # from the consume below, a mapper stage) breaks the chain next frame
+        newp = dict(out=out, feats=feats, ctl=ctl, image=image, timestamp=timestamp,
+                    aux=p["aux"], lblock=p["lblock"], ppR=p["out"].R, ppt=p["out"].t,
+                    disp_s=time.perf_counter() - t0, **guards)
+        with m.update_lock:
+            self._consume_pending()  # frame k-1
+            if self.state != State.OK or self._stat.get("method") != "fused":
+                # frame k-1 was lost, reset or rescued by a fallback: the
+                # outputs that frame k chained on were rejected; track k again
+                self.n_discarded_chained += 1
+                self.n_retracked_frames += 1
+                self._track_serial(image, timestamp)
+                return self._last_T()
+        self.n_chained_frames += 1
+        self._chain_len += 1
+        self._pending = newp
+        return self._last_T()
 
     # ------------------------------------------------------------------ track
 
@@ -886,6 +1097,8 @@ class Tracking:
 
     def reset(self):
         """Reference Tracking::Reset (Tracking.cc:1139-1179)."""
+        # an in-flight pipelined frame rode the old map
+        self._pending = None
         self.map.clear()
         if self.local_mapper is not None:
             self.local_mapper.reset()

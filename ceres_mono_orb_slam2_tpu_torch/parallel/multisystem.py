@@ -18,6 +18,14 @@ Streams that cannot fuse on a frame (initialising, LOST, fallback states)
 take their ordinary single-stream path that frame; only the streams that can
 fuse are batched (S' <= S, whatever lanes they are), and a lone one takes
 the single-stream device phase.
+
+With `threaded=True` every stream's `MonoSLAM` has its own mapper thread,
+which each of its new keyframes wakes; the streams' trackers stay serial
+(not pipelined): `track_batch` consumes each frame itself. A stream whose
+map a loop correction or a global-BA apply rewrote during the batched device
+phase tracks that frame again on its single-stream path
+(`Tracking.n_retracked_frames`), so its extractions are its frames plus its
+re-tracks.
 """
 
 from __future__ import annotations
@@ -58,6 +66,9 @@ class MultiStreamSLAM:
             s.extractor = self.extractor
             s.tracker.extractor = self.extractor
             s.tracker._fused_step = self.fused_step
+            # a pending in-flight frame would never be consumed in order by
+            # track_batch's direct prepare / consume calls
+            s.tracker.pipelined = False
         self.n_batched_frames = 0
         self.n_single_frames = 0
         # cumulative wall-time split of the batched frames (seconds): host
@@ -118,9 +129,14 @@ class MultiStreamSLAM:
             t_c0 = time.perf_counter()
             for k, i in enumerate(batch_idx):
                 sysm = self.streams[i]
+                aux = preps[i][1]
                 with sysm.map.update_lock:
-                    sysm.tracker._fused_consume(
-                        preps[i][1], out.stream(k), type(feats)(*(a[k] for a in feats)), ctl[k])
+                    # a correction on the stream's mapper or global-BA
+                    # thread during the batch: the stream tracks this frame
+                    # again on its own
+                    if not sysm.tracker._retrack_if_corrected(images[i], timestamps[i], aux[-1]):
+                        sysm.tracker._fused_consume(
+                            aux, out.stream(k), type(feats)(*(a[k] for a in feats)), ctl[k])
                 results[i] = self._finish_stream(i)
             t_c1 = time.perf_counter()
             ph = self.phase_s
@@ -145,19 +161,13 @@ class MultiStreamSLAM:
         return results
 
     def _finish_stream(self, i: int):
-        """Post-track work and return value of MonoSLAM.track_monocular."""
+        """Post-track work and return value of MonoSLAM.track_monocular:
+        the stream's mapping runs here, or on its mapper thread when
+        threaded."""
         sysm = self.streams[i]
-        f = sysm.tracker.current
-        sysm.tracker.last_frame = f
-        sysm.local_mapper.process_queue()
-        if sysm.loop_closer is not None:
-            sysm.loop_closer.process_queue()
-        if f.pose_set:
-            T = np.eye(4, dtype=np.float32)
-            T[:3, :3] = f.Rcw
-            T[:3, 3] = f.tcw
-            return T
-        return None
+        sysm.tracker.last_frame = sysm.tracker.current
+        sysm._map_after_frame()
+        return sysm.tracker._last_T()
 
     def shutdown(self):
         for s in self.streams:

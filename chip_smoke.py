@@ -18,6 +18,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      world at 1241x376 with 2000 ORB features, asserting initialisation,
      tracking, mapping, exactly one launch of each kernel per frame and
      trajectory accuracy;
+     `[threaded]`: the 60 frames through `MonoSLAM(threaded=True)` fed at
+     full rate (local mapping on the mapper thread), the same bars, the mapper
+     alive until `shutdown()`; `[pipelined]`: with `pipelined=True` as well,
+     paced by `wait_mapper_idle()` after each frame, a coverage check of
+     chaining rather than the mode's full-rate traffic (at full rate the
+     tracker inserts a keyframe whenever the mapper goes idle, so the map
+     changes between every two frames and no frame chains): frames chain,
+     and the kernels launch once per frame and once more per re-tracked
+     frame; frame times of the three side by side;
   5. `[bow]`: a 1,111,111-node (10^6-word) vocabulary on the card, frame 0's
      descriptors through the tree on the card and on the CPU (equal word
      ids and node paths), the transform's time; a small vocabulary trained,
@@ -33,20 +42,25 @@ Phases (each prints its own lines; any failure exits non-zero):
      kernel per frame;
   8. `[loop]`: `MonoSLAM` with the geometric front end (2000 features a
      frame) over a closed 72-frame circle, twice: loop detected, corrected,
-     essential graph and global BA run through the full system;
+     essential graph and global BA run through the full system; the second
+     run threaded, its global BA on the `gba` thread, paced by
+     `wait_mapper_idle()` and a join of the `gba` thread after each frame,
+     equal to the first to the bit;
   9. `[multistream]`: `make_multistream_step` at 1241x376, 2000 features and
      4096 map points a stream on `synthetic_stream_state`, S=8 against each
      stream alone (counts equal, poses within a tolerance), the step's time
      and device launches at S=1 and S=8, one launch of each kernel a step;
      the batched local BA of 8 problems against 8 single solves;
- 10. `[multisystem]`: `MultiStreamSLAM` with 8 streams over 60 rendered
+ 10. `[multisystem]`: `MultiStreamSLAM` with 8 streams over 30 rendered
      1241x376 frames each, stream 0 the spiral of phase 4: its decisions
      equal to the serial run's and its camera centres within 1e-3 of it,
      every stream initialised, tracked and accurate, one launch of each
-     kernel per batched frame;
+     kernel per batched frame; then the same bars with `threaded=True` (a
+     mapper thread per stream) over the first 12 frames;
  11. print the card's name and power limit.
 `python3 chip_smoke.py --only multistream,multisystem` runs the build, the
-spiral and the named phases only (a quicker check while developing).
+spiral and the named phases only (a quicker check while developing). The
+script prints its total seconds.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs one CUDA device.
 """
@@ -80,6 +94,13 @@ NMS_OPS = 8  # f32 max/compare of one suppression
 TIMING_CALLS = 50  # fn() calls captured back to back in one CUDA graph
 TIMING_REPLAYS = 5
 N_STREAMS = 8  # the multi-stream phases
+MS_FRAMES = 30  # frames a stream of [multisystem]
+# frames a stream of its threaded run: a batch frame there takes ~8.6 s on
+# any host (8 mapper threads and the tracker share one GIL), so 30 would
+# add ~150 s to the script
+MS_THREADED_FRAMES = 12
+MS_STEADY = 4  # [multisystem]'s batch-frame times count from here (streams initialise by then)
+JOIN_TIMEOUT_S = 600.0
 MAP_POINTS = 4096  # map points a stream of the multi-stream step
 
 
@@ -119,6 +140,13 @@ def time_ms(fn, calls: int = TIMING_CALLS, replays: int = TIMING_REPLAYS) -> flo
         times.append(a.elapsed_time(b) / calls)
     del graph
     return float(np.median(times))
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
 
 
 def phase_build():
@@ -414,7 +442,97 @@ def phase_slam(seq, cfg):
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"slam checks failed: {failed}")
-    return launches, poses, float(np.median(steady))
+    timing = {"median": float(np.median(steady)), "p95": float(np.percentile(steady, 95)),
+              "frame_ms": frame_ms}
+    return launches, poses, timing
+
+
+def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
+    """The spiral of phase 4 through `MonoSLAM(threaded=True)` fed at full
+    rate, or with `pipelined=True` as well and paced by `wait_mapper_idle()`
+    after each frame (a coverage check: at full rate no frame chains), then
+    `shutdown()`: phase 4's bars, the mapper thread
+    alive until shutdown, and for the pipelined mode chained frames and one
+    launch of each kernel per frame plus one per re-tracked frame. A frame's
+    time is the host's wall time of its `track_monocular` call (the pose is
+    on the host when it returns); the whole run's wall time includes the
+    pacing and the drain at shutdown."""
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
+    from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse
+
+    name = "pipelined" if pipelined else "threaded"
+    n = N_FRAMES
+    slam = MonoSLAM(cfg, device="cuda", threaded=True, pipelined=pipelined)
+    torch.cuda.synchronize()
+    k.reset_launch_counts()
+    poses, frame_ms = [], []
+    t_run = time.perf_counter()
+    for i in range(n):
+        t = time.perf_counter()
+        poses.append(slam.track_monocular(seq.images[i], float(seq.timestamps[i])))
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        if pipelined and not slam.wait_mapper_idle(timeout=JOIN_TIMEOUT_S):
+            raise AssertionError("[pipelined] the mapper thread did not go idle")
+    alive = slam._worker.is_alive()
+    slam.shutdown()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t_run
+    launches = dict(k.launch_counts)
+    tr, lm = slam.tracker, slam.local_mapper
+    n_extractions = n + tr.n_retracked_frames  # each re-tracked frame extracts again
+
+    if pipelined:  # poses return a frame late: read the drained log
+        ts, est = slam.get_frame_trajectory()
+        frame_of = {float(t): i for i, t in enumerate(seq.timestamps)}
+        idx = [frame_of[float(t)] for t in ts]
+    else:
+        idx = [i for i, T in enumerate(poses) if T is not None]
+        est = np.asarray([-T[:3, :3].T @ T[:3, 3] for T in poses if T is not None])
+    first = min(idx) if idx else n
+    frac = len(idx) / max(n - first, 1)
+    gt = seq.gt_centers()[idx]
+    traj_len = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()) if len(gt) > 1 else 0.0
+    ate_pct = 100.0 * ate_rmse(est, gt) / traj_len if traj_len > 0 else float("inf")
+    steady = np.asarray(frame_ms[10:])
+    serial_steady = np.asarray(serial["frame_ms"][10:])
+    serial_s = sum(serial["frame_ms"]) / 1e3
+    stages = ("process_new", "cull_mp", "triangulate", "fuse", "lba", "cull_kf")
+    stage_ms = {st: float(np.mean([p[st] for p in lm.pass_ms if st in p] or [0.0])) for st in stages}
+    mapping_s = sum(sum(v for key, v in p.items() if key != "kf") for p in lm.pass_ms) / 1e3
+    log(f"[{name}] init frame {first}, tracked {len(idx)}/{n} ({100 * frac:.1f}% after init), "
+        f"keyframes {slam.map.n_keyframes()}, map points {slam.map.n_map_points()}, n_local_ba "
+        f"{lm.n_local_ba}, n_ba_aborted {lm.n_ba_aborted}, n_fused_frames {tr.n_fused_frames}, "
+        f"n_chained_frames {tr.n_chained_frames}, n_discarded_chained {tr.n_discarded_chained}, "
+        f"n_retracked_frames {tr.n_retracked_frames}, launches {launches} over {n_extractions} "
+        f"extractions")
+    log(f"[{name}] ATE {ate_pct:.4f}% of {traj_len:.3f} m (repeat check: ATE {ate_pct!r} %, sum of camera "
+        f"centres {float(est.sum())!r}); per-frame ms (frames 10+): median {np.median(steady):.2f}, p95 "
+        f"{np.percentile(steady, 95):.2f}, max {steady.max():.2f} beside the serial run's median "
+        f"{np.median(serial_steady):.2f}, p95 {np.percentile(serial_steady, 95):.2f}; whole run "
+        f"{total_s:.2f} s with {'the pacing and ' if pipelined else ''}the drain at shutdown beside the "
+        f"serial run's {serial_s:.2f} s")
+    log(f"[{name}] mapper: {len(lm.pass_ms)} passes, {mapping_s:.2f} s in all, mean stage ms "
+        f"{ {st: round(v, 2) for st, v in stage_ms.items()} }")
+    checks = {
+        "initialises within 10 frames": first < 10,
+        "tracks >= 90% after init": frac >= 0.9,
+        ">= 3 keyframes": slam.map.n_keyframes() >= 3,
+        "n_local_ba >= 1": lm.n_local_ba >= 1,
+        "the mapper thread alive until shutdown": alive,
+        "the mapper thread stopped at shutdown": not slam._worker.is_alive(),
+        "fast_nms launched once per extraction": launches["fast_nms"] == n_extractions,
+        "gather_patches launched once per extraction": launches["gather_patches"] == n_extractions,
+        "ATE < 1% of trajectory": ate_pct < 1.0,
+        "finite poses": all(np.isfinite(T).all() for T in poses if T is not None),
+    }
+    if pipelined:
+        checks["n_chained_frames > 0"] = tr.n_chained_frames > 0
+        checks["pipeline drained"] = tr._pending is None
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{name} checks failed: {failed}")
+    return launches, n_extractions
 
 
 def timed(fn):
@@ -427,13 +545,17 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def device_launches(fn):
-    """Device kernels and copies that one fn() call launches (torch.profiler,
-    CUDA activity only)."""
+def profiled(fn):
+    """(fn()'s result, the device kernels and copies that the call
+    launches), from torch.profiler with CUDA activity only."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+        out = fn()
         torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    return out, sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
+def device_launches(fn):
+    return profiled(fn)[1]
 
 
 def phase_bow(seq, cfg):
@@ -617,14 +739,14 @@ def solver_essential_graph(P: int = 200):
     cost0 = float(sim3opt.optimize_essential_graph(*args, gn_iters=0).cost)
     run = lambda: sim3opt.optimize_essential_graph(*args)  # noqa: E731
     res, ms = timed(run)
-    again = run()
+    again, n_launches = profiled(run)
     c1 = centre(*(a.cpu().numpy().astype(np.float64) for a in (res.R, res.t, res.s)))
     gap1 = float(np.linalg.norm(c1[-1] - c1[0]) - np.linalg.norm(c_true[-1] - c_true[0]))
     err0, err1 = float(np.abs(c0 - c_true).max()), float(np.abs(c1 - c_true).max())
     same = all(torch.equal(a, b) for a, b in zip(res, again))
     log(f"[solvers] optimize_essential_graph ring of {P} poses, {len(ei)} edges, 30 GN x 100 PCG: cost "
         f"{cost0:.4e} -> {float(res.cost):.4e}, loop gap error {gap0:.4f} -> {gap1:.4f}, max centre error "
-        f"{err0:.4f} -> {err1:.4f} (radius 5); {ms:.1f} ms, {device_launches(run)} launches; "
+        f"{err0:.4f} -> {err1:.4f} (radius 5); {ms:.1f} ms, {n_launches} launches; "
         f"two calls bit-identical: {same}")
     if not (float(res.cost) < 1e-2 * cost0 and abs(gap1) < 0.1 * abs(gap0) and err1 < 0.25 * err0 and same):
         raise AssertionError("[solvers] the essential graph did not close the ring")
@@ -639,7 +761,7 @@ def solver_ba_cg():
     run = lambda: optim.bundle_adjustment_cg(*args, iters=20, cg_iters=50, robust=True)  # noqa: E731
     run()
     cg, ms = timed(run)
-    again = run()
+    again, n_launches = profiled(run)
     dense, ms_dense = timed(lambda: optim.bundle_adjustment(*args, iters_huber=20, iters_trimmed=0))
     # the dense solver reports its trimmed cost: a zero-iteration CG call
     # evaluates the Huber cost of its solution
@@ -650,7 +772,7 @@ def solver_ba_cg():
     log(f"[solvers] bundle_adjustment_cg P={args[1].shape[0]} M={args[3].shape[0]} O={args[4].shape[0]}, "
         f"20 LM x 50 CG: Huber cost {c0:.3f} -> {c_cg:.3f} (dense Schur solver: {c_dense:.3f}, "
         f"{ms_dense:.1f} ms), inliers {int(cg.inlier_obs.sum())}; {ms:.1f} ms, "
-        f"{device_launches(run)} launches; two calls bit-identical: {same}")
+        f"{n_launches} launches; two calls bit-identical: {same}")
     if not same:
         raise AssertionError("bundle_adjustment_cg is not deterministic on the card")
     if not (c_cg < 0.5 * c0 and abs(c_cg - c_dense) <= 0.01 * c_dense):
@@ -747,8 +869,10 @@ def phase_reloc():
     return launches, RELOC_FRAMES
 
 
-def run_loop():
-    """One run of the closed geometric circle through the full system."""
+def run_loop(threaded: bool = False):
+    """One run of the closed geometric circle through the full system;
+    threaded, each frame waits for the mapper thread and for a running
+    global BA, so that the run makes the serial run's every decision."""
     from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
     from ceres_mono_orb_slam2_tpu_torch.ops import bow
     from ceres_mono_orb_slam2_tpu_torch.utils.geosim import (
@@ -760,13 +884,24 @@ def run_loop():
     Rcw, tcw = make_geo_trajectory(LOOP_FRAMES, "circle", LOOP_STEP)
     world = GeoWorld(np.random.default_rng(0), LOOP_LANDMARKS, shape="ring")
     voc = bow.train_vocabulary(world.desc[:4000], k=8, levels=3, seed=0, device="cuda")
-    slam = MonoSLAM(cfg, vocabulary=voc, device="cuda")
+    slam = MonoSLAM(cfg, vocabulary=voc, device="cuda", threaded=threaded)
     gx = slam.tracker.extractor = GeoExtractor(world, cfg.camera.K, Rcw, tcw, n_feat, TUM_H, TUM_W,
                                                px_noise=0.3, bit_noise=2, seed=3, device="cuda")
     gt_c = np.einsum("tij,tj->ti", Rcw.transpose(0, 2, 1), -tcw)
     est, gt, frame_ms, changed = [], [], [], []
+
+    def frame(i):
+        T = slam.track_monocular(frame_image(i, TUM_H, TUM_W), i / 30.0)
+        if threaded:
+            if not slam.wait_mapper_idle(timeout=JOIN_TIMEOUT_S):
+                raise AssertionError("[loop] the mapper thread did not go idle")
+            gba = slam.loop_closer.gba_thread
+            if gba is not None and gba.is_alive():
+                gba.join(timeout=JOIN_TIMEOUT_S)
+        return T
+
     for i in range(LOOP_FRAMES):
-        T, ms = timed(lambda: slam.track_monocular(frame_image(i, TUM_H, TUM_W), i / 30.0))
+        T, ms = timed(lambda: frame(i))
         frame_ms.append(ms)
         changed.append(slam.map_changed())
         if T is not None:
@@ -775,21 +910,27 @@ def run_loop():
     est, gt = np.stack(est), np.stack(gt)
     traj = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
     n_kp = np.mean([(s >= 0).sum() for s in gx.slot_lm_by_frame.values()])
-    return dict(slam=slam, state=slam.get_tracking_state(), tracked=len(est), frame_ms=frame_ms,
+    alive = threaded and slam._worker.is_alive()
+    state = slam.get_tracking_state()
+    if threaded:
+        slam.shutdown()
+    return dict(slam=slam, state=state, tracked=len(est), frame_ms=frame_ms,
                 ate_pct=100.0 * ate_rmse(est, gt) / traj, centre_sum=float(est.sum()),
-                changed=changed, mean_keypoints=float(n_kp))
+                changed=changed, mean_keypoints=float(n_kp), worker_alive=alive)
 
 
 def phase_loop():
     """Loop closing through the full system with the geometric front end,
-    twice (the second run for the run-to-run fingerprint)."""
+    twice: serial, then threaded with the global-BA thread; the two runs
+    must agree to the bit."""
     runs = []
-    for r in range(2):
-        run, ms = timed(run_loop)
+    for r, threaded in enumerate((False, True)):
+        run, ms = timed(lambda: run_loop(threaded))
         runs.append(run)
         slam = run["slam"]
         lc = slam.loop_closer
-        log(f"[loop] run {r}: {LOOP_FRAMES} frames {TUM_W}x{TUM_H}, {run['mean_keypoints']:.0f} keypoints a "
+        log(f"[loop] run {r} ({'threaded, global BA on its own thread' if threaded else 'serial'}): "
+            f"{LOOP_FRAMES} frames {TUM_W}x{TUM_H}, {run['mean_keypoints']:.0f} keypoints a "
             f"frame of {LOOP_LANDMARKS} landmarks, in {ms / 1e3:.1f} s: state {run['state']}, tracked "
             f"{run['tracked']}/{LOOP_FRAMES}, keyframes {slam.map.n_keyframes()}, map points "
             f"{slam.map.n_map_points()}, n_loops_closed {lc.n_loops_closed}, n_gba_runs {lc.n_gba_runs}, "
@@ -814,11 +955,16 @@ def phase_loop():
                 sum(run["changed"]) == lc.n_loops_closed and not slam.map_changed(),
             "about 2000 keypoints a frame": run["mean_keypoints"] >= 1800,
         }
+        if threaded:
+            checks["the mapper thread alive until shutdown"] = run["worker_alive"]
+            checks["global BA ran on the gba thread"] = lc.gba_thread is not None
         failed = [name for name, ok in checks.items() if not ok]
         if failed:
             raise AssertionError(f"loop checks failed (run {r}): {failed}")
     same = (runs[0]["ate_pct"] == runs[1]["ate_pct"] and runs[0]["centre_sum"] == runs[1]["centre_sum"])
-    log(f"[loop] two runs bit-identical (ATE and sum of camera centres): {same}")
+    log(f"[loop] serial and threaded runs bit-identical (ATE and sum of camera centres): {same}")
+    if not same:
+        raise AssertionError("[loop] the threaded run differs from the serial run")
 
 
 def ba_window(seed: int, P: int = 16, M: int = 2048, O: int = 8192):
@@ -912,113 +1058,154 @@ def phase_multistream(cfg):
     return launches, 1
 
 
-def phase_multisystem(seq, cfg, serial_poses, serial_median_ms):
-    """`MultiStreamSLAM` with 8 streams over 60 rendered KITTI-width frames
-    each: stream 0 is the spiral that the serial MonoSLAM of phase 4 ran, the
-    others the same ring world under other steps along the spiral and other
-    ring worlds (seeds) under the same motion."""
+def run_multisystem(seqs, cfg, threaded: bool, n_frames: int):
+    """`MultiStreamSLAM` over the first n_frames frames of each sequence:
+    (system, poses per stream, batch-frame ms, launches, workers alive at the
+    end)."""
     from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
     from ceres_mono_orb_slam2_tpu_torch.parallel.multisystem import MultiStreamSLAM
-    from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse, make_rendered_sequence
 
-    S = N_STREAMS
-    t0 = time.perf_counter()
-    variants = [(11, 0.05), (11, 0.055), (11, 0.065), (11, 0.07), (12, 0.06), (13, 0.06), (11, 0.0525)]
-    seqs = [seq] + [make_rendered_sequence(N_FRAMES, H, W, 500.0, 500.0, motion="spiral", step=step,
-                                           seed=seed, device="cuda") for seed, step in variants]
-    log(f"[multisystem] rendered {S - 1} more sequences of {N_FRAMES} frames {W}x{H} (seed, step) "
-        f"{variants} in {time.perf_counter() - t0:.1f} s")
+    S = len(seqs)
     torch.cuda.reset_peak_memory_stats()
-    system = MultiStreamSLAM(cfg, n_streams=S, device="cuda")
+    system = MultiStreamSLAM(cfg, n_streams=S, device="cuda", threaded=threaded)
     k.reset_launch_counts()
     poses, frame_ms = [[] for _ in range(S)], []
-    for i in range(N_FRAMES):
+    for i in range(n_frames):
         res, ms = timed(lambda: system.track_batch([q.images[i] for q in seqs],
                                                    [float(q.timestamps[i]) for q in seqs]))
         frame_ms.append(ms)
         for s in range(S):
             poses[s].append(res[s])
-    launches = dict(k.launch_counts)
+    alive = all(m._worker.is_alive() for m in system.streams) if threaded else None
     system.shutdown()
-    peak = torch.cuda.max_memory_allocated()
+    launches = dict(k.launch_counts)
+    return system, poses, frame_ms, launches, alive
 
+
+def phase_multisystem(seq, cfg, serial_poses, serial: dict):
+    """`MultiStreamSLAM` with 8 streams over 30 rendered KITTI-width frames
+    each, then with a mapper thread per stream over the first 12 of them
+    (at full rate 8 mapper threads and the tracker share one GIL, which
+    stretches a batch frame several times): stream 0 is the spiral that the
+    serial MonoSLAM of phase 4 ran, the others the same ring world under
+    other steps along the spiral and other ring worlds (seeds) under the
+    same motion."""
+    from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse, make_rendered_sequence
+
+    S = N_STREAMS
+    t0 = time.perf_counter()
+    variants = [(11, 0.05), (11, 0.055), (11, 0.065), (11, 0.07), (12, 0.06), (13, 0.06), (11, 0.0525)]
+    seqs = [seq] + [make_rendered_sequence(MS_FRAMES, H, W, 500.0, 500.0, motion="spiral", step=step,
+                                           seed=seed, device="cuda") for seed, step in variants]
+    log(f"[multisystem] rendered {S - 1} more sequences of {MS_FRAMES} frames {W}x{H} (seed, step) "
+        f"{variants} in {time.perf_counter() - t0:.1f} s")
     centre = lambda T: -T[:3, :3].T @ T[:3, 3]  # noqa: E731
-    same_decisions = all((a is None) == (b is None) for a, b in zip(serial_poses, poses[0]))
-    err0 = max((float(np.linalg.norm(centre(a) - centre(b)))
-                for a, b in zip(serial_poses, poses[0]) if a is not None and b is not None),
-               default=float("inf"))
-    first, frac, ate = [], [], []
-    for s in range(S):
-        tracked = [T is not None for T in poses[s]]
-        first.append(tracked.index(True) if any(tracked) else N_FRAMES)
-        frac.append(sum(tracked[first[s]:]) / max(N_FRAMES - first[s], 1))
-        est = np.asarray([centre(T) for T in poses[s] if T is not None])
-        gt = seqs[s].gt_centers()[np.asarray(tracked)]
-        traj = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()) if len(gt) > 1 else 0.0
-        ate.append(100.0 * ate_rmse(est, gt) / traj if traj > 0 else float("inf"))
-    ph = system.phase_s
-    n_b = max(ph["frames"], 1)
-    steady = np.asarray(frame_ms[10:])
-    log(f"[multisystem] S={S}, {N_FRAMES} frames a stream: n_batched_frames {system.n_batched_frames}, "
-        f"n_single_frames {system.n_single_frames}, launches {launches}; init frames {first}, tracked after "
-        f"init {[round(100 * f, 1) for f in frac]} %, ATE {[round(a, 4) for a in ate]} %, keyframes "
-        f"{[m.map.n_keyframes() for m in system.streams]}, map points "
-        f"{[m.map.n_map_points() for m in system.streams]}")
-    log(f"[multisystem] stream 0 against the serial run: decisions equal {same_decisions}, camera centres "
-        f"within {err0:.3e}")
-    log(f"[multisystem] per batched frame (mean of {ph['frames']}): prepare {ph['prepare'] / n_b * 1e3:.1f} ms, "
-        f"dispatch {ph['dispatch'] / n_b * 1e3:.1f} ms, fetch {ph['fetch'] / n_b * 1e3:.1f} ms, consume "
-        f"(with local mapping) {ph['consume'] / n_b * 1e3:.1f} ms; batch frame ms (frames 10+): median "
-        f"{np.median(steady):.2f}, p95 {np.percentile(steady, 95):.2f} = {S / np.median(steady) * 1e3:.2f} "
-        f"frames/s in aggregate, beside {1e3 / serial_median_ms:.2f} frames/s of the serial run (median "
-        f"frame {serial_median_ms:.2f} ms); peak device memory {peak / 1e6:.1f} MB")
-    n_calls = system.n_batched_frames + system.n_single_frames
-    checks = {
-        "stream 0 makes the serial run's decisions": same_decisions,
-        "stream 0's camera centres within 1e-3 of the serial run": err0 < 1e-3,
-        "every stream initialises within 10 frames": max(first) < 10,
-        "every stream tracks >= 90% after init": min(frac) >= 0.9,
-        "every stream's ATE < 1% of its trajectory": max(ate) < 1.0,
-        "n_batched_frames >= 40": system.n_batched_frames >= 40,
-        "fast_nms launched once per batched and per single-path frame": launches["fast_nms"] == n_calls,
-        "gather_patches launched once per batched and per single-path frame":
-            launches["gather_patches"] == n_calls,
-    }
-    failed = [name for name, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"multisystem checks failed: {failed}")
-    return launches, n_calls
+    paths, unthreaded_ms = {}, None
+    for threaded, n_frames in ((False, MS_FRAMES), (True, MS_THREADED_FRAMES)):
+        name = "multisystem_threaded" if threaded else "multisystem"
+        system, poses, frame_ms, launches, alive = run_multisystem(seqs, cfg, threaded, n_frames)
+        peak = torch.cuda.max_memory_allocated()
+        first, frac, ate = [], [], []
+        for s in range(S):
+            tracked = [T is not None for T in poses[s]]
+            first.append(tracked.index(True) if any(tracked) else n_frames)
+            frac.append(sum(tracked[first[s]:]) / max(n_frames - first[s], 1))
+            est = np.asarray([centre(T) for T in poses[s] if T is not None])
+            gt = seqs[s].gt_centers()[:n_frames][np.asarray(tracked)]
+            traj = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()) if len(gt) > 1 else 0.0
+            ate.append(100.0 * ate_rmse(est, gt) / traj if traj > 0 else float("inf"))
+        ph = system.phase_s
+        n_b = max(ph["frames"], 1)
+        # extractions: the batched frames, the single-path frames, and the
+        # frames a stream tracked again after a correction landed mid-batch
+        n_calls = (system.n_batched_frames + system.n_single_frames
+                   + sum(m.tracker.n_retracked_frames for m in system.streams))
+        log(f"[{name}] S={S}, {n_frames} frames a stream: n_batched_frames {system.n_batched_frames}, "
+            f"n_single_frames {system.n_single_frames}, launches {launches}; init frames {first}, tracked "
+            f"after init {[round(100 * f, 1) for f in frac]} %, ATE {[round(a, 4) for a in ate]} %, "
+            f"keyframes {[m.map.n_keyframes() for m in system.streams]}, map points "
+            f"{[m.map.n_map_points() for m in system.streams]}, n_local_ba "
+            f"{[m.local_mapper.n_local_ba for m in system.streams]}")
+        if threaded:  # beside the unthreaded run's same frames
+            same = np.asarray(unthreaded_ms[MS_STEADY:n_frames])
+            beside = (f"the unthreaded run's {S / np.median(same) * 1e3:.2f} over the same frames "
+                      f"(median {np.median(same):.2f} ms)")
+        else:
+            unthreaded_ms = frame_ms
+            beside = f"{1e3 / serial['median']:.2f} of the serial run (median frame {serial['median']:.2f} ms)"
+        steady = np.asarray(frame_ms[MS_STEADY:])
+        log(f"[{name}] phase_s per batched frame (mean of {ph['frames']}): prepare "
+            f"{ph['prepare'] / n_b * 1e3:.1f} ms, dispatch {ph['dispatch'] / n_b * 1e3:.1f} ms, fetch "
+            f"{ph['fetch'] / n_b * 1e3:.1f} ms, consume (with local mapping unless threaded) "
+            f"{ph['consume'] / n_b * 1e3:.1f} ms; batch frame ms (frames {MS_STEADY}+): median "
+            f"{np.median(steady):.2f}, p95 {np.percentile(steady, 95):.2f} = "
+            f"{S / np.median(steady) * 1e3:.2f} frames/s in aggregate, beside {beside}; peak device "
+            f"memory {peak / 1e6:.1f} MB")
+        checks = {
+            "every stream initialises within 10 frames": max(first) < 10,
+            "every stream tracks >= 90% after init": min(frac) >= 0.9,
+            "every stream's ATE < 1% of its trajectory": max(ate) < 1.0,
+            "every frame from frame 4 on batched": system.n_batched_frames >= n_frames - 4,
+            "every stream ran local BA": min(m.local_mapper.n_local_ba for m in system.streams) >= 1,
+            "fast_nms launched once per batched and per single-path frame": launches["fast_nms"] == n_calls,
+            "gather_patches launched once per batched and per single-path frame":
+                launches["gather_patches"] == n_calls,
+        }
+        if threaded:
+            checks["every mapper thread alive until shutdown"] = alive
+        else:
+            same_decisions = all((a is None) == (b is None)
+                                 for a, b in zip(serial_poses[:n_frames], poses[0]))
+            err0 = max((float(np.linalg.norm(centre(a) - centre(b)))
+                        for a, b in zip(serial_poses[:n_frames], poses[0])
+                        if a is not None and b is not None), default=float("inf"))
+            log(f"[{name}] stream 0 against the serial run: decisions equal {same_decisions}, camera "
+                f"centres within {err0:.3e}")
+            checks["stream 0 makes the serial run's decisions"] = same_decisions
+            checks["stream 0's camera centres within 1e-3 of the serial run"] = err0 < 1e-3
+        failed = [c for c, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"{name} checks failed: {failed}")
+        paths[name] = (launches, n_calls)
+    return paths
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="", help="comma-separated later phases to run after the build "
-                    "and the spiral (bow, solvers, reloc, loop, multistream, multisystem); default all")
+                    "and the spiral (threaded, pipelined, bow, solvers, reloc, loop, multistream, "
+                    "multisystem); default all")
     only = [name for name in ap.parse_args().only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    t_script = time.perf_counter()
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{nvidia_smi()}")
     phase_build()
     cfg = slam_config()
     seq = render_sequence()
     rows = phase_kernels(seq, cfg)
     phase_ba()
-    spiral_launches, spiral_poses, spiral_median = phase_slam(seq, cfg)
+    spiral_launches, spiral_poses, spiral = phase_slam(seq, cfg)
     paths = {"spiral": (spiral_launches, N_FRAMES)}
-    for name, phase in (("bow", lambda: phase_bow(seq, cfg)), ("solvers", phase_solvers),
+    # no CUDA graph is captured from here on, while other threads may run
+    for name, phase in (("threaded", lambda: phase_concurrent(seq, cfg, spiral, pipelined=False)),
+                        ("pipelined", lambda: phase_concurrent(seq, cfg, spiral, pipelined=True)),
+                        ("bow", lambda: phase_bow(seq, cfg)), ("solvers", phase_solvers),
                         ("reloc", phase_reloc), ("loop", phase_loop),
                         ("multistream", lambda: phase_multistream(cfg)),
-                        ("multisystem", lambda: phase_multisystem(seq, cfg, spiral_poses, spiral_median))):
+                        ("multisystem", lambda: phase_multisystem(seq, cfg, spiral_poses, spiral))):
         if only and name not in only:
             continue
         path, ms = timed(phase)
         log(f"[{name}] phase took {ms / 1e3:.1f} s")
-        if path is not None:  # (launches, extractions) of a path that extracts from pixels
+        if isinstance(path, dict):  # several paths of one phase
+            paths.update(path)
+        elif path is not None:  # (launches, extractions) of a path that extracts from pixels
             paths[name] = path
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    log(smi.splitlines()[0])
+    log(f"[total] {time.perf_counter() - t_script:.1f} s")
+    log(nvidia_smi())
     n_extractions = sum(n for _, n in paths.values())
     for r in rows:  # launches summed over every path that extracts from pixels
         r["launches"] = sum(counts[r["name"]] for counts, _ in paths.values())

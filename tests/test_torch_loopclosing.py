@@ -120,11 +120,3 @@ def test_correct_loop_matches(both, gba, monkeypatch):
     err_after = np.linalg.norm(centres(tm) - np.stack([-Rg[k].T @ tg[k] for k in range(P)]), axis=1)
     far = slice(3, P - 3)
     assert err_after[far].mean() < 0.8 * err_before[far].mean()
-
-
-def test_threaded_gba_waits_for_the_threaded_port():
-    from ceres_mono_orb_slam2_tpu_torch.models.map import Map
-    from ceres_mono_orb_slam2_tpu_torch.utils.config import SlamConfig
-
-    with pytest.raises(NotImplementedError):
-        tlc.LoopClosing(SlamConfig(), Map(), keyframe_db=None, threaded_gba=True, device="cpu")

@@ -10,6 +10,8 @@ sequential runs), and one of its streams agrees with the JAX
 tracker draws its initializer's RANSAC noise from the JAX tracker's
 `jax.random` chain."""
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -174,9 +176,74 @@ def test_grab_fused_is_finish_of_prepare(sequences):
     assert a.tracker.n_fused_frames == b.tracker.n_fused_frames >= 1
 
 
-def test_threaded_raises():
-    with pytest.raises(NotImplementedError):
-        MultiStreamSLAM(config_from_reference(_config()), n_streams=2, threaded=True, device="cpu")
+def test_batched_consume_retracks_a_corrected_stream(sequences, port_runs):
+    """A whole-map rewrite (what a global-BA apply or a loop correction
+    marks, `Map.note_all_mp_dirty`) lands on stream 0's map from another
+    thread while the batch's device phase runs: stream 0 tracks that frame
+    again on its own path, the other stream consumes the batch. Decisions
+    stay those of the sequential runs, camera centres within 1e-3, and the
+    extractions are the batched frames, the single-path frames and the
+    re-tracks."""
+    n_frames, S = 8, 2
+    seq_poses = port_runs[0]
+    ms = MultiStreamSLAM(config_from_reference(_config()), n_streams=S, device="cpu")
+    for s in ms.streams:
+        s.tracker.uniform_noise = JaxTrackerNoise()
+    n_extract, frontend, extract = [0], ms._batched_frontend, ms.extractor.extract
+    m0 = ms.streams[0].map
+
+    def counted_extract(images):
+        n_extract[0] += 1
+        return extract(images)
+
+    def rewrite():
+        with m0.update_lock:
+            m0.note_all_mp_dirty()
+
+    def frontend_under_rewrite(args):
+        if ms.n_batched_frames == 3:
+            t = threading.Thread(target=rewrite)
+            t.start()
+            t.join(timeout=60.0)
+            assert not t.is_alive(), "the batched device phase holds a stream's map lock"
+        return frontend(args)
+
+    ms.extractor.extract = counted_extract
+    ms._batched_frontend = frontend_under_rewrite
+    poses = [[] for _ in range(S)]
+    for k in range(n_frames):
+        for s, T in enumerate(_track_batch(ms, sequences, k)):
+            poses[s].append(T)
+    ms.shutdown()
+    assert [s.tracker.n_retracked_frames for s in ms.streams] == [1, 0]
+    assert n_extract[0] == ms.n_batched_frames + ms.n_single_frames + 1
+    for s in range(S):
+        pairs = list(zip(_centres(seq_poses[s][:n_frames]), _centres(poses[s])))
+        assert all((a is None) == (b is None) for a, b in pairs), s
+        assert max(np.linalg.norm(a - b) for a, b in pairs if a is not None) < 1e-3, s
+
+
+def test_multistream_threaded_smoke(sequences):
+    """tests/test_multisystem.py's threaded case: each stream's mapping and
+    loop closing on its own mapper thread behind the batched front end;
+    tracking survives the interleavings and each worker builds its map."""
+    S = len(SEEDS)
+    ms = MultiStreamSLAM(config_from_reference(_config()), n_streams=S, threaded=True, device="cpu")
+    for s in ms.streams:
+        s.tracker.uniform_noise = JaxTrackerNoise()
+    assert all(s.threaded and not s.tracker.pipelined for s in ms.streams)
+    n_ok = [0] * S
+    for k in range(N_FRAMES):
+        for s, T in enumerate(_track_batch(ms, sequences, k)):
+            n_ok[s] += T is not None
+    assert ms.n_batched_frames >= 5, ms.n_batched_frames
+    assert all(s._worker.is_alive() for s in ms.streams)
+    ms.shutdown()
+    for s in range(S):
+        assert not ms.streams[s]._worker.is_alive()
+        assert n_ok[s] >= N_FRAMES - 4, (s, n_ok)
+        assert ms.streams[s].map.n_keyframes() >= 2
+        assert ms.streams[s].map.n_map_points() > 50
 
 
 def test_defaults_to_the_card():

@@ -59,6 +59,14 @@ cfg = SlamConfig(orb=ORBConfig(n_features=200))
 images, state = synthetic_stream_state(cfg, 2, 64, h=96, w=128, device="cpu")
 res = make_multistream_step(cfg, 96, 128, device="cpu")(images, state)
 assert res.Rcw.shape == (2, 3, 3) and res.n_matches.shape == (2,)
+# the threaded slice: the mapper thread, the global-BA thread, pipelined tracking
+slam = MonoSLAM(SlamConfig(), vocabulary=voc, device="cpu", threaded=True, pipelined=True)
+assert slam._worker.is_alive() and slam.loop_closer.threaded_gba and slam.tracker.pipelined
+assert slam.track_monocular(np.zeros((96, 128), np.uint8), 0.0) is None
+slam.shutdown()
+assert not slam._worker.is_alive() and slam.tracker._pending is None
+ms = MultiStreamSLAM(SlamConfig(), n_streams=2, threaded=True, device="cpu")
+ms.shutdown()
 assert not any(name == "jax" or name.startswith("jax.") for name, mod in sys.modules.items()
                if mod is not None)
 print("OK")
@@ -167,7 +175,9 @@ def test_slice_four_modules_exist_under_the_reference_names():
     from ceres_mono_orb_slam2_tpu_torch.parallel.multistream import StepResult, StreamState
     from ceres_mono_orb_slam2_tpu_torch.parallel.multisystem import MultiStreamSLAM
 
-    for name in ("_fused_prepare", "_fused_finish", "_fused_consume", "_grab_fused"):
+    for name in ("_fused_prepare", "_fused_finish", "_fused_consume", "_grab_fused",
+                 "_grab_pipelined", "_start_pipeline", "_consume_pending", "flush_pipeline",
+                 "_track_serial", "_start_copies"):
         assert hasattr(Tracking, name) and hasattr(JaxTracking, name), name
     assert StreamState._fields == JaxStreamState._fields
     assert StepResult._fields == JaxStepResult._fields

@@ -109,6 +109,3 @@ def test_without_a_relocalizer_a_lost_frame_stays_lost():
     slam = MonoSLAM(TConfig(), device="cpu")
     assert slam.keyframe_db is None and slam.loop_closer is None
     assert slam.tracker._relocalization() is False
-    for kw in ({"threaded": True}, {"pipelined": True}):
-        with pytest.raises(NotImplementedError):
-            MonoSLAM(TConfig(), device="cpu", **kw)

@@ -2,6 +2,7 @@
 
     python tools/prof_torch_slam.py [--frames 30] [--warmup 15] [--prof-frames 4]
                                     [--out prof_out] [--vocab] [--streams S]
+                                    [--threaded] [--pipelined]
 
 Renders the spiral ring world at 1241x376 (the chip_smoke.py sequence) and
 runs the serial MonoSLAM on the GPU three times, measuring the frames after
@@ -25,8 +26,21 @@ streams (the spiral under S seeds and steps) and measure a batch frame: its
 wall time and its split into prepare / dispatch / fetch / consume
 (`phase_s`), device launches and device time per batch frame, the device
 busy share, and the host's cumulative times.
-Writes `summary.json`, `ops.txt` and `cprofile.txt` under --out and prints
-the summary. Needs a CUDA device.
+With `--threaded` and / or `--pipelined` the system is
+`MonoSLAM(threaded=..., pipelined=...)` fed at full rate, and the passes
+measure: 1. the host's wall time of each `track_monocular` call (the pose is
+on the host when it returns), the window's wall time with the final drain,
+and the mapper's per-stage ms (`pass_ms`); 2. a per-thread profile by stack
+sampling (cProfile on Python 3.12 is one process-wide profiler that cannot
+tell threads apart): for the tracker (`MainThread`), `mapper` and `gba`
+threads, the share of samples each function was on the thread's stack, and
+the share in which the thread sat in a Python-level wait (the mapper's idle
+`queue.get`, a join; a wait inside a C call, such as for the map lock or a
+device copy, shows as the calling function); 3. the device busy share and
+launches a frame under torch.profiler, last, since the profiler stretches
+the threaded frames most.
+Writes `summary.json`, `ops.txt` and `cprofile.txt` (`sampling.txt` for the
+threaded modes) under --out and prints the summary. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,7 +53,9 @@ import os
 import pstats
 import subprocess
 import sys
+import threading
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -183,6 +199,153 @@ def profile_streams(args, h: int, w: int) -> int:
     return 0
 
 
+class ThreadSampler:
+    """Samples every thread's Python stack each `interval` seconds on a
+    thread of its own: per thread, how many samples each function was on the
+    stack (once per sample), and how many found the thread in a Python-level
+    wait."""
+
+    WAITS = {"wait", "get", "join", "_wait_for_tstate_lock"}
+
+    def __init__(self, interval: float = 0.005):
+        self.interval = interval
+        self.samples = Counter()  # thread name -> samples
+        self.waiting = Counter()  # thread name -> samples spent waiting
+        self.funcs = {}  # thread name -> Counter of "file:line(function)"
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="sampler", daemon=True)
+
+    def _run(self):
+        me = threading.get_ident()
+        while not self._stop.wait(self.interval):
+            names = {t.ident: t.name for t in threading.enumerate()}
+            for ident, frame in sys._current_frames().items():
+                if ident == me:
+                    continue
+                name = names.get(ident, str(ident))
+                self.samples[name] += 1
+                if frame.f_code.co_name in self.WAITS:
+                    self.waiting[name] += 1
+                seen = set()
+                while frame is not None:
+                    code = frame.f_code
+                    seen.add(f"{os.path.basename(code.co_filename)}:{code.co_firstlineno}({code.co_name})")
+                    frame = frame.f_back
+                self.funcs.setdefault(name, Counter()).update(seen)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+    def report(self, top: int = 25) -> str:
+        out = []
+        for name, n in self.samples.most_common():
+            out.append(f"thread {name}: {n} samples, waiting in {self.waiting[name] / n:.3f} of them")
+            for fn, c in self.funcs[name].most_common(top):
+                out.append(f"  {c / n:7.3f}  {fn}")
+        return "\n".join(out)
+
+
+def profile_concurrent(args, seq, voc, h: int, w: int) -> int:
+    """The three passes over `MonoSLAM(threaded=..., pipelined=...)` fed at
+    full rate."""
+    window = range(args.warmup, args.frames)
+
+    def fresh():
+        slam = MonoSLAM(_config(h, w), vocabulary=voc, device="cuda", threaded=args.threaded,
+                        pipelined=args.pipelined)
+        for i in range(args.warmup):
+            slam.track_monocular(seq.images[i], float(seq.timestamps[i]))
+        slam.wait_mapper_idle(timeout=600.0)
+        torch.cuda.synchronize()
+        slam.local_mapper.pass_ms.clear()
+        return slam
+
+    def run(slam, frames):
+        """Per-call host ms of the frames, then the wall time through the
+        drain (mapper idle, pipeline consumed, device synchronised)."""
+        ms = []
+        t0 = time.perf_counter()
+        for i in frames:
+            t = time.perf_counter()
+            slam.track_monocular(seq.images[i], float(seq.timestamps[i]))
+            ms.append((time.perf_counter() - t) * 1e3)
+        slam.flush_pipeline()
+        slam.wait_mapper_idle(timeout=600.0)
+        torch.cuda.synchronize()
+        return np.asarray(ms), (time.perf_counter() - t0) * 1e3
+
+    # pass 1: wall clock, no profiler
+    slam = fresh()
+    frame_ms, wall_ms = run(slam, window)
+    lm, tr = slam.local_mapper, slam.tracker
+    stages = ("process_new", "cull_mp", "triangulate", "fuse", "lba", "cull_kf")
+    stage_ms = {st: float(np.mean([p[st] for p in lm.pass_ms if st in p] or [0.0])) for st in stages}
+    counters = {"mapping_passes": len(lm.pass_ms), "n_local_ba": lm.n_local_ba,
+                "n_ba_aborted": lm.n_ba_aborted, "n_chained_frames": tr.n_chained_frames,
+                "n_discarded_chained": tr.n_discarded_chained, "n_retracked_frames": tr.n_retracked_frames}
+    slam.shutdown()
+    print(f"pass 1: frame ms median {np.median(frame_ms):.2f}, p95 {np.percentile(frame_ms, 95):.2f}; "
+          f"window {wall_ms:.1f} ms for {len(frame_ms)} frames with the drain; mapper stages {stage_ms}; "
+          f"{counters}", flush=True)
+
+    # pass 2: per-thread stack sampling over the window of a fresh run
+    slam = fresh()
+    with ThreadSampler() as sampler:
+        run(slam, window)
+    slam.shutdown()
+    text = sampler.report()
+    with open(os.path.join(args.out, "sampling.txt"), "w") as f:
+        f.write(text)
+    # pass 3: torch.profiler over the start of the window of a fresh run
+    slam = fresh()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    pw = window[:args.prof_frames]
+    kernels.reset_launch_counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        _, prof_wall_ms = run(slam, pw)
+    orb_launches = {k: v / len(pw) for k, v in kernels.launch_counts.items()}
+    slam.shutdown()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    print(f"pass 3: {len(dev_events) / len(pw):.0f} launches/frame, device {dev_ms / len(pw):.2f} "
+          f"ms/frame of {prof_wall_ms / len(pw):.2f} ms profiled", flush=True)
+    evs = prof.key_averages()
+    dev_key = ("self_device_time_total" if hasattr(evs[0], "self_device_time_total")
+               else "self_cuda_time_total")
+    with open(os.path.join(args.out, "ops.txt"), "w") as f:
+        f.write(evs.table(sort_by=dev_key, row_limit=30))
+        f.write("\n")
+        f.write(evs.table(sort_by="self_cpu_time_total", row_limit=30))
+
+    summary = {
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": _smi(),
+        "threaded": args.threaded, "pipelined": args.pipelined,
+        "vocabulary_words": None if voc is None else voc.n_words,
+        "frames_profiled": len(frame_ms),
+        "frame_ms_median": float(np.median(frame_ms)),
+        "frame_ms_p95": float(np.percentile(frame_ms, 95)),
+        "window_ms_with_drain": wall_ms, "mapper_stage_ms_mean": stage_ms, "counters": counters,
+        "frames_under_torch_profiler": len(pw),
+        "profiled_wall_ms_per_frame": prof_wall_ms / len(pw),
+        "device_kernel_ms_per_frame": dev_ms / len(pw),
+        "kernel_launches_per_frame": len(dev_events) / len(pw),
+        "orb_kernel_launches_per_frame": orb_launches,
+        "device_busy_share_under_profiler": dev_ms / prof_wall_ms,
+        "thread_samples": dict(sampler.samples),
+        "thread_waiting_share": {k: sampler.waiting[k] / n for k, n in sampler.samples.items()},
+    }
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps(summary, indent=1))
+    print(text[:6000])
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=30)
@@ -193,6 +356,10 @@ def main() -> int:
                     help="run with a trained vocabulary (BoW database and loop closer)")
     ap.add_argument("--streams", type=int, default=1,
                     help="S > 1: profile MultiStreamSLAM with S streams instead of the serial MonoSLAM")
+    ap.add_argument("--threaded", action="store_true",
+                    help="MonoSLAM(threaded=True): local mapping and loop closing on the mapper thread")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="MonoSLAM(pipelined=True): frame k dispatched before frame k-1 is consumed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("prof_torch_slam: no CUDA device", file=sys.stderr)
@@ -205,6 +372,8 @@ def main() -> int:
                                  seed=11, device="cuda")
     window = range(args.warmup, args.frames)
     voc = _train_vocabulary(seq, _config(h, w)) if args.vocab else None
+    if args.threaded or args.pipelined:
+        return profile_concurrent(args, seq, voc, h, w)
 
     def fresh():
         slam = MonoSLAM(_config(h, w), vocabulary=voc, device="cuda")
