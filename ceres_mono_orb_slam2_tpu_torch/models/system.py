@@ -10,7 +10,9 @@ share the card's default CUDA stream, so the order of enqueue orders their
 device work. With `pipelined=True` the tracker dispatches frame k's fused
 step before it consumes frame k-1 (`Tracking._grab_pipelined`). With a
 vocabulary the facade builds the BoW keyframe database (relocalization) and
-the loop closer.
+the loop closer. The facade also switches localization mode, and saves and
+loads trajectories and maps in the JAX package's formats (`save_map`'s
+`.npz` loads into either package).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from ceres_mono_orb_slam2_tpu_torch.models.localmapping import LocalMapping
-from ceres_mono_orb_slam2_tpu_torch.models.map import Map
+from ceres_mono_orb_slam2_tpu_torch.models.map import KeyFrame, Map
 from ceres_mono_orb_slam2_tpu_torch.models.tracking import Tracking
 from ceres_mono_orb_slam2_tpu_torch.ops import lie
 from ceres_mono_orb_slam2_tpu_torch.ops.orb import ORBExtractor
@@ -160,6 +162,17 @@ class MonoSLAM:
         if self.threaded:
             self._map_after_frame()
 
+    def activate_localization_mode(self):
+        """Track against the map without mapping (reference
+        ActivateLocalizationMode); the in-flight pipelined frame is consumed
+        first."""
+        self.flush_pipeline()
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.flush_pipeline()
+        self.tracker.localization_only = False
+
     def reset(self):
         with self.map.update_lock:
             self.tracker.reset()
@@ -205,6 +218,41 @@ class MonoSLAM:
     def get_tracking_state(self) -> str:
         return self.tracker.state.name
 
+    def n_tracked_points(self) -> int:
+        return self.tracker.matches_inliers
+
+    def get_tracked_map_points(self):
+        """Reference GetTrackedMapPoints (MonoORBSlam.cc:280-283): per
+        keypoint slot of the current frame its map point, replaced points
+        followed to their replacement, None for unmatched slots and dead
+        points."""
+        f = self.tracker.current
+        if f is None:
+            return []
+        out = []
+        with self.map.update_lock:
+            for m in f.mp_ids:
+                mp = None
+                if m >= 0:
+                    rid = self.map.resolve(int(m))
+                    if rid >= 0:
+                        mp = self.map.map_points.get(rid)
+                        if mp is not None and mp.bad:
+                            mp = None
+                out.append(mp)
+        return out
+
+    def get_tracked_keypoints_un(self) -> np.ndarray:
+        """Reference GetTrackedKeyPointsUn (MonoORBSlam.cc:285-288): the
+        current frame's undistorted keypoints, (N, 2) float32, slot for slot
+        beside `get_tracked_map_points()`; padded slots hold NaN."""
+        f = self.tracker.current
+        if f is None:
+            return np.zeros((0, 2), np.float32)
+        kp = np.array(f.kp_und, np.float32)
+        kp[~np.asarray(f.kp_valid)] = np.nan
+        return kp
+
     def get_frame_trajectory(self):
         """Per-frame trajectory as (timestamps, camera centres Twc): every
         tracked frame re-based on its reference keyframe's current pose, as
@@ -237,3 +285,184 @@ class MonoSLAM:
                 f.write("%f %.7f %.7f %.7f %.7f %.7f %.7f %.7f\n"
                         % (kf.timestamp, twc[0], twc[1], twc[2], q[0], q[1], q[2], q[3]))
         log.info("trajectory saved to %s", path)
+
+    def save_frame_trajectory_tum(self, path: str):
+        """Every logged frame, lost ones included, re-based on its reference
+        keyframe's current pose (the culled-keyframe chain followed), in the
+        TUM format of `save_keyframe_trajectory_tum` (the reference records
+        the same relative transforms, Tracking.cc:367-382)."""
+        self.flush_pipeline()
+        rows = []
+        with self.map.update_lock:
+            for kf_id, R_rel, t_rel, ts, _ in self.tracker.trajectory:
+                pose = self.map.resolve_kf_pose(kf_id, R_rel, t_rel)
+                if pose is not None:
+                    Rwc = pose[0].T
+                    rows.append((ts, -Rwc @ pose[1], Rwc))
+        with open(path, "w") as f:
+            for ts, twc, Rwc in rows:
+                q = lie.rot_to_quat(torch.as_tensor(np.ascontiguousarray(Rwc))).numpy()
+                f.write("%f %.7f %.7f %.7f %.7f %.7f %.7f %.7f\n"
+                        % (ts, twc[0], twc[1], twc[2], q[0], q[1], q[2], q[3]))
+
+    def save_map(self, path: str):
+        """Map snapshot as `.npz`, with the JAX package's keys, dtypes and
+        shapes, so that either package loads the other's file: map points
+        (id, position, descriptor, scale distances, normal, reference
+        keyframe) and keyframes (ids, timestamp, pose, full keypoint payload,
+        bindings, spanning-tree parent). The reference writes a smaller
+        OpenCV-YAML dump (`save_map_yaml`) and cannot load a map."""
+        self.flush_pipeline()
+        with self.map.update_lock:
+            mps = self.map.all_map_points()
+            kfs = sorted(self.map.all_keyframes(), key=lambda k: k.id)
+
+            def stack(rows, empty_shape, dtype):
+                return np.stack(rows).astype(dtype) if rows else np.zeros(empty_shape, dtype)
+
+            arrays = dict(
+                mp_ids=np.array([mp.id for mp in mps], np.int64),
+                mp_pos=stack([mp.pos for mp in mps], (0, 3), np.float32),
+                mp_desc=stack([mp.descriptor for mp in mps], (0, 32), np.uint8),
+                mp_min_dist=np.array([mp.min_dist for mp in mps], np.float32),
+                mp_max_dist=np.array([mp.max_dist for mp in mps], np.float32),
+                mp_normal=stack([mp.normal for mp in mps], (0, 3), np.float32),
+                mp_ref_kf=np.array([mp.ref_kf_id for mp in mps], np.int64),
+                kf_ids=np.array([kf.id for kf in kfs], np.int64),
+                kf_frame_ids=np.array([kf.frame_id for kf in kfs], np.int64),
+                kf_timestamps=np.array([kf.timestamp for kf in kfs], np.float64),
+                kf_Rcw=stack([kf.Rcw for kf in kfs], (0, 3, 3), np.float32),
+                kf_tcw=stack([kf.tcw for kf in kfs], (0, 3), np.float32),
+                kf_mp_ids=stack([kf.mp_ids for kf in kfs], (0, 0), np.int64),
+                kf_kp_xy=stack([kf.kp_xy for kf in kfs], (0, 0, 2), np.float32),
+                kf_kp_und=stack([kf.kp_und for kf in kfs], (0, 0, 2), np.float32),
+                kf_kp_octave=stack([kf.kp_octave for kf in kfs], (0, 0), np.int32),
+                kf_kp_angle=stack([kf.kp_angle for kf in kfs], (0, 0), np.float32),
+                kf_kp_response=stack([kf.kp_response for kf in kfs], (0, 0), np.float32),
+                kf_desc=stack([kf.desc for kf in kfs], (0, 0, 32), np.uint8),
+                kf_kp_valid=stack([kf.kp_valid for kf in kfs], (0, 0), bool),
+                kf_parent=np.array([kf.parent if kf.parent is not None else -1 for kf in kfs],
+                                   np.int64),
+            )
+        np.savez_compressed(path, **arrays)
+        log.info("map saved to %s (%d points, %d keyframes)", path, len(mps), len(kfs))
+
+    def save_map_yaml(self, path: str):
+        """Reference-format map dump (SaveMap, MonoORBSlam.cc:194-247):
+        OpenCV-YAML with MapPoints {id, pos (3x1 d), descriptor (1x32 u)} and
+        KeyFrames {id, timestamp, R (world from camera), t (camera centre),
+        map_point_indices}; matrices as `!!opencv-matrix`, so that
+        cv::FileStorage reads the file. The reference's key "map_point
+        indices" has a space, which FileStorage rejects, hence the
+        underscore; the colons carry a space, which standard YAML parsers
+        need."""
+
+        def mat(rows, cols, dt, values):
+            data = ", ".join(("%d" % v) if dt == "u" else repr(float(v)) for v in values)
+            return "!!opencv-matrix { rows: %d, cols: %d, dt: %s, data: [ %s ] }" % (rows, cols, dt, data)
+
+        self.flush_pipeline()
+        with self.map.update_lock:
+            mps = sorted(self.map.all_map_points(), key=lambda m: m.id)
+            kfs = sorted(self.map.all_keyframes(), key=lambda k: k.id)
+            with open(path, "w") as f:
+                f.write("%YAML:1.0\n---\n")
+                f.write("MapPoints:\n")
+                for mp in mps:
+                    f.write('   - { id: "%d", pos: %s,\n       descriptor: %s }\n'
+                            % (mp.id, mat(3, 1, "d", mp.pos), mat(1, 32, "u", mp.descriptor)))
+                f.write("KeyFrames:\n")
+                for kf in kfs:
+                    Rwc = kf.Rcw.T
+                    ids = sorted(int(m) for m in kf.mp_ids if m >= 0)
+                    f.write('   - { id: "%d", timestamp: %r, R: %s,\n       t: %s,\n'
+                            '       map_point_indices: %s }\n'
+                            % (kf.id, float(kf.timestamp), mat(3, 3, "d", Rwc.reshape(-1)),
+                               mat(3, 1, "d", -Rwc @ kf.tcw),
+                               mat(1, max(len(ids), 1), "f", ids if ids else [-1])))
+        log.info("YAML map saved to %s (%d points, %d keyframes)", path, len(mps), len(kfs))
+
+    def load_map(self, path: str):
+        """Load a `save_map` file (of either package) in place of the map:
+        map points, keyframes with their payloads and bindings, the
+        covisibility graph, the spanning tree and, with a vocabulary, the BoW
+        database (each keyframe's BoW vector computed on the device). Map
+        point ids are renumbered in file order, keyframe ids kept (the JAX
+        package's loader drops a keyframe wherever culling left a gap in the
+        saved ids, then fails with a KeyError). The
+        device pool re-mirrors the new map (`Map.clear` moves `map_epoch`),
+        `correction_epoch` moves so that a frame in flight is tracked again,
+        and the tracker is left LOST, so that the next frame relocalizes
+        against the loaded map (the JAX package leaves it waiting to
+        initialize, which builds a second map inside the loaded one).
+        Returns {old map-point id: new id}."""
+        self.flush_pipeline()
+        self.wait_mapper_idle(timeout=JOIN_TIMEOUT_S)
+        data = np.load(path)
+        m = self.map
+        with m.update_lock:
+            m.clear()
+            self.local_mapper.reset()
+            if self.loop_closer is not None:
+                self.loop_closer.reset()
+            if self.keyframe_db is not None:
+                self.keyframe_db.clear()
+            id_map = {}
+            for i, mid in enumerate(data["mp_ids"]):
+                mp = m.new_map_point(data["mp_pos"][i], data["mp_desc"][i],
+                                     ref_kf_id=int(data["mp_ref_kf"][i]))
+                mp.min_dist = float(data["mp_min_dist"][i])
+                mp.max_dist = float(data["mp_max_dist"][i])
+                mp.normal = data["mp_normal"][i]
+                id_map[int(mid)] = mp.id
+            kf_ids = data["kf_ids"]
+            for i, kid in enumerate(kf_ids):
+                # under its saved id: culled keyframes leave gaps in the ids
+                kf = m.keyframes[int(kid)] = KeyFrame(int(kid), _SavedFrame(data, i, id_map))
+                for q in np.nonzero(kf.mp_ids >= 0)[0]:
+                    mp = m.map_points.get(int(kf.mp_ids[q]))
+                    if mp is not None:
+                        m.add_observation(mp, kf, int(q))
+            m.next_kf_id = int(kf_ids.max()) + 1 if len(kf_ids) else 0
+            if len(kf_ids):
+                # the global BA's spanning-tree propagation walks from here
+                m.keyframe_origins.append(int(kf_ids.min()))
+            for i, kid in enumerate(kf_ids):
+                kf = m.keyframes[int(kid)]
+                par = int(data["kf_parent"][i])
+                if par >= 0 and par in m.keyframes:
+                    kf.parent = par
+                    m.keyframes[par].children.add(kf.id)
+                m.update_connections(kf)
+                if self.keyframe_db is not None:
+                    self.keyframe_db.add(kf)
+            # remap stale reference keyframes and refresh per-point stats
+            for mp in m.all_map_points():
+                if mp.ref_kf_id not in m.keyframes and mp.observations:
+                    mp.ref_kf_id = next(iter(mp.observations))
+                m.update_normal_and_depth(mp, self.config.orb.scale_factors)
+            m.correction_epoch += 1
+            self.tracker.relocalize_next()
+        log.info("map loaded from %s (%d points, %d keyframes)", path, m.n_map_points(),
+                 m.n_keyframes())
+        return id_map
+
+
+class _SavedFrame:
+    """Keyframe i of a `save_map` file as the frame the KeyFrame constructor
+    reads (host arrays only: its device payload uploads on first use), its
+    bindings renumbered through `id_map`."""
+
+    def __init__(self, data, i: int, id_map: dict):
+        self.id = int(data["kf_frame_ids"][i])
+        self.timestamp = float(data["kf_timestamps"][i])
+        self.Rcw = data["kf_Rcw"][i]
+        self.tcw = data["kf_tcw"][i]
+        self.kp_xy = data["kf_kp_xy"][i]
+        self.kp_und = data["kf_kp_und"][i]
+        self.kp_octave = data["kf_kp_octave"][i]
+        self.kp_angle = data["kf_kp_angle"][i]
+        self.kp_response = data["kf_kp_response"][i]
+        self.desc = data["kf_desc"][i]
+        self.kp_valid = data["kf_kp_valid"][i]
+        self.mp_ids = np.array([id_map.get(int(old), -1) for old in data["kf_mp_ids"][i]], np.int64)

@@ -7,7 +7,11 @@ pool (split into `_fused_prepare` / `_fused_dispatch` / `_fused_consume`, so
 that `parallel/multisystem.py` can batch the device phase of several
 streams), the keyframe decision, relocalization against a BoW keyframe
 database and the trajectory log; without a relocalizer a lost frame stays
-lost, as in the JAX package with no vocabulary.
+lost, as in the JAX package with no vocabulary. In localization mode
+(`localization_only`) the tracker tracks against a frozen map, serially:
+no keyframe is inserted, no frame fuses or chains, and a weakly tracked
+frame (`do_vo`) is tracked both by the motion model and by relocalization
+(`_tracking_with_known_map`).
 
 Every read and write of the map by the tracker runs under
 `map.update_lock`, which a mapper thread takes per stage. A fused frame
@@ -87,6 +91,8 @@ class Tracking:
         self.matches_inliers = 0
         self.max_frames = int(cam.fps)
         self.min_frames = 0
+        self.localization_only = False
+        self.do_vo = False  # the reference's do_vo_: weak map tracking in localization mode
         # RANSAC noise of the two-view initializer and of relocalization;
         # `uniform_noise(shape)` may be replaced to inject draws (tests feed
         # the JAX tracker's)
@@ -164,7 +170,7 @@ class Tracking:
 
     def _can_fuse(self) -> bool:
         return (self.fused_enabled and self.state == State.OK and self.velocity is not None
-                and self.bounds is not None and self.last_frame is not None
+                and not self.localization_only and self.bounds is not None and self.last_frame is not None
                 and self.last_frame.pose_set and self.map.n_keyframes() >= 2)
 
     def _ensure_pool(self):
@@ -530,12 +536,12 @@ class Tracking:
             p = self._pending
             # the chain extends only while the map is as the in-flight frame
             # saw it (no point mutation, keyframe insertion or erasure, reset
-            # or correction) and for at most 8 frames, since chained frames
-            # reuse the start's local block; otherwise drain and restart
-            # from the host
+            # or correction), outside localization mode and for at most 8
+            # frames, since chained frames reuse the start's local block;
+            # otherwise drain and restart from the host
             guards = self._guards()
-            can_chain = (p is not None and not m.mp_dirty and self._chain_len < 8
-                         and guards == {k: p[k] for k in guards})
+            can_chain = (p is not None and not self.localization_only and not m.mp_dirty
+                         and self._chain_len < 8 and guards == {k: p[k] for k in guards})
             if p is not None and not can_chain:
                 self._consume_pending()
                 p = None
@@ -580,7 +586,9 @@ class Tracking:
             self._monocular_initialization()
             return
         ok = False
-        if self.state == State.OK:
+        if self.localization_only:
+            ok = self._tracking_with_known_map()
+        elif self.state == State.OK:
             self._check_replaced_in_last_frame()
             if self.velocity is not None:
                 ok = self._track_with_motion_model()
@@ -595,7 +603,9 @@ class Tracking:
             ok = self._relocalization()
             self._stat["method"] = "reloc"
         self._stat["inliers_frame"] = self.matches_inliers if ok else 0
-        if ok:
+        # no local map while localization runs on visual odometry
+        # (Tracking.cc:296-301)
+        if ok and not (self.localization_only and self.do_vo):
             ok = self._track_local_map()
         self._stat["inliers_local"] = self.matches_inliers
         self._finish_track(ok, t0)
@@ -618,7 +628,7 @@ class Tracking:
                 self.velocity = (Rv, f.tcw - Rv @ tl)
             f.mp_ids[f.outlier] = -1
             f.outlier[:] = False
-            if self._need_new_keyframe():
+            if not self.localization_only and self._need_new_keyframe():
                 self._create_new_keyframe()
             self._log_trajectory(False)
         else:
@@ -808,7 +818,50 @@ class Tracking:
         self.matches_inliers = self._pose_optimize(f)
         f.mp_ids[f.outlier] = -1
         f.outlier[:] = False
+        if self.localization_only:
+            # Tracking.cc:665-669: do_vo flags weak map tracking by inliers,
+            # but the mode accepts the frame on the raw match count
+            self.do_vo = self.matches_inliers < 10
+            return n > 20
         return self.matches_inliers >= 10
+
+    def _tracking_with_known_map(self) -> bool:
+        """Reference TrackingWithKnownMap (Tracking.cc:185-236): the
+        localization-mode state machine. Lost: relocalize. Otherwise the
+        motion model (or the reference keyframe without a velocity), unless
+        the last frame tracked too few map points (do_vo): then both the
+        motion model and a relocalization, and a relocalization that
+        succeeds wins and ends do_vo."""
+        f = self.current
+        if self.state == State.LOST:
+            self._stat["method"] = "reloc"
+            ok = self._relocalization()
+            if ok:
+                self.do_vo = False
+            return ok
+        if not self.do_vo:
+            if self.velocity is not None:
+                self._stat["method"] = "motion"
+                return self._track_with_motion_model()
+            self._stat["method"] = "refkf"
+            return self._track_reference_keyframe()
+        self._stat["method"] = "vo-dual"
+        mm_ok, mm_state = False, None
+        if self.velocity is not None:
+            mm_ok = self._track_with_motion_model()
+            mm_state = (f.Rcw.copy(), f.tcw.copy(), f.mp_ids.copy(), f.outlier.copy())
+        reloc_ok = self._relocalization()
+        if mm_ok and not reloc_ok:
+            f.set_pose(mm_state[0], mm_state[1])
+            f.mp_ids[:] = mm_state[2]
+            f.outlier[:] = mm_state[3]
+            for i in np.nonzero((f.mp_ids >= 0) & ~f.outlier)[0]:
+                mp = self.map.get_mp(int(f.mp_ids[i]))
+                if mp is not None:
+                    mp.n_found += 1
+        elif reloc_ok:
+            self.do_vo = False
+        return reloc_ok or mm_ok
 
     def _track_reference_keyframe(self) -> bool:
         """Reference TrackReferenceKeyFrame (Tracking.cc:566-607)."""
@@ -1110,8 +1163,25 @@ class Tracking:
         self.state = State.NOT_INITIALIZED
         self.last_frame = None
         self.velocity = None
+        self.do_vo = False
         self.ref_kf_id = None
         self.init_ref = None
         self.last_kf_id = -1
         self.trajectory.clear()
         self.n_resets += 1
+
+    def relocalize_next(self):
+        """Make the next frame relocalize against the map, as after a lost
+        frame: for a map that was loaded rather than built. Without it the
+        next frame would start a monocular initialization inside the loaded
+        map (the JAX package's `load_map` leaves its tracker so)."""
+        self._pending = None
+        self.state = State.LOST
+        self.last_frame = None
+        self.current = None
+        self.velocity = None
+        self.do_vo = False
+        self.ref_kf_id = None
+        self.init_ref = None
+        self.last_kf_id = -1
+        self.trajectory.clear()

@@ -306,9 +306,16 @@ def synth_vocabulary(k: int = 10, levels: int = 6, seed: int = 0) -> Vocabulary:
 def dump_orbvoc_text(voc: Vocabulary, path: str):
     """Write the standard ORBvoc.txt format (header 'k L 0 3', one line per
     non-root node: parent is_leaf d0..d31 weight, pre-order), compatible with
-    TemplatedVocabulary::loadFromTextFile and `parse_orbvoc_text`."""
+    TemplatedVocabulary::loadFromTextFile and `parse_orbvoc_text`. The
+    native writer (`utils/native.py`) when its library is built, else this
+    Python one."""
     import io
 
+    from ceres_mono_orb_slam2_tpu_torch.utils import native
+
+    if native.available() and native.dump_orbvoc_native(
+            path, voc.k, voc.levels, voc.node_desc, voc.children, voc.word_id, voc.word_weight):
+        return
     buf = io.StringIO()
     buf.write(f"{voc.k} {voc.levels} 0 3\n")
     remap = {0: 0}
@@ -334,8 +341,15 @@ def dump_orbvoc_text(voc: Vocabulary, path: str):
 def parse_orbvoc_text(path: str) -> Vocabulary:
     """Parse the standard ORBvoc.txt (loadFromTextFile): header
     'k L scoring weighting', then one line per node:
-    parent_id is_leaf d0..d31 weight. A pure-Python line scan feeding the
-    vectorized tree assembly of `_vocabulary_from_raw`."""
+    parent_id is_leaf d0..d31 weight. The line scan is the native one
+    (`utils/native.py`, as the reference's loader is native: a ~1.1M-line
+    file gates startup) when its library is built, else a pure-Python one;
+    both feed the vectorized tree assembly of `_vocabulary_from_raw`."""
+    from ceres_mono_orb_slam2_tpu_torch.utils import native
+
+    raw = native.parse_orbvoc_raw(path) if native.available() else None
+    if raw is not None:
+        return _vocabulary_from_raw(*raw)
     with open(path, "r") as f:
         header = f.readline().split()
         k, levels = int(header[0]), int(header[1])

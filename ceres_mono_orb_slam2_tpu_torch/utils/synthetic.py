@@ -1,10 +1,12 @@
 """Synthetic sequences with exact ground truth, rendered on the device.
 
 Port of `ceres_mono_orb_slam2_tpu/utils/synthetic.py`: the same textured
-plane worlds (`default_world`, `ring_world`) and camera trajectories as
-`make_sequence`, the plane-intersection ray tracer of `render_frames_device`
-in torch, and `ate_rmse`. Worlds and noise are drawn from numpy generators
-seeded like the JAX package, so a seed gives the same scene.
+plane worlds (`default_world`, `ring_world`) and camera trajectories, the
+numpy ray tracer of `make_sequence` (the CLI's `--synthetic`), the
+plane-intersection ray tracer of `render_frames_device` in torch, optionally
+through a distorted lens, `ate_rmse` and `trajectory_positions`. Worlds and
+noise are drawn from numpy generators seeded like the JAX package, so a seed
+gives the same scene. Nothing is cached on disk.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ceres_mono_orb_slam2_tpu_torch.ops import lie
+from ceres_mono_orb_slam2_tpu_torch.ops import camera, lie
 
 
 @dataclass
@@ -87,6 +89,34 @@ def _bilinear(tex, x, y):
     fy = np.clip(y - y0, 0, 1)
     return ((1 - fy) * ((1 - fx) * tex[y0, x0] + fx * tex[y0, x0 + 1])
             + fy * ((1 - fx) * tex[y0 + 1, x0] + fx * tex[y0 + 1, x0 + 1]))
+
+
+def _render(planes: List[Plane], K, Rcw, tcw, h, w, background=25.0):
+    """Reference numpy ray tracer: float64 rays through every pixel, the
+    nearest plane hit in front of the camera, bilinear texture sampling."""
+    Rwc = Rcw.T
+    c = -Rwc @ tcw  # camera centre in the world
+    us, vs = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    d_cam = np.stack([(us - K[0, 2]) / K[0, 0], (vs - K[1, 2]) / K[1, 1], np.ones_like(us)], axis=-1)
+    d_world = d_cam @ Rwc.T  # (h, w, 3)
+    img = np.full((h, w), background, np.float32)
+    best_s = np.full((h, w), np.inf)
+    for pl in planes:
+        n = np.cross(pl.ex, pl.ey)
+        denom = d_world @ n
+        denom = np.where(np.abs(denom) < 1e-12, 1e-12, denom)
+        s = ((pl.origin - c) @ n) / denom  # ray parameter
+        X = c + s[..., None] * d_world
+        rel = X - pl.origin
+        tu = rel @ pl.ex
+        tv = rel @ pl.ey
+        ht, wt = pl.texture.shape
+        su, sv = pl.size
+        inside = (s > 0.1) & (tu >= 0) & (tu < su) & (tv >= 0) & (tv < sv) & (s < best_s)
+        vals = _bilinear(pl.texture, tu / su * (wt - 1), tv / sv * (ht - 1))
+        img = np.where(inside, vals.astype(np.float32), img)
+        best_s = np.where(inside, s, best_s)
+    return img
 
 
 def default_world(rng, extent: float = 20.0) -> List[Plane]:
@@ -192,6 +222,36 @@ def camera_pose(k: int, motion: str, step: float):
     return Rcw, -Rcw @ c
 
 
+def _world(rng, motion: str, n_frames: int, step: float) -> List[Plane]:
+    """The ring world for circle / spiral motion, else the default world."""
+    if motion in ("circle", "spiral"):
+        return ring_world(rng)
+    return default_world(rng, extent=max(n_frames * step * 1.5, 10.0))
+
+
+def make_sequence(n_frames: int = 40, h: int = 480, w: int = 640, fx: float = 500.0,
+                  fy: float = 500.0, motion: str = "strafe", step: float = 0.06, seed: int = 0,
+                  noise: float = 1.0, fps: float = 30.0) -> SyntheticSequence:
+    """Ray-traced sequence from the numpy renderer (the JAX package's
+    `make_sequence` without its disk cache): principal point at the image
+    centre, Gaussian pixel noise drawn frame by frame from the world's
+    generator."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[fx, 0, w / 2.0], [0, fy, h / 2.0], [0, 0, 1]], np.float32)
+    planes = _world(rng, motion, n_frames, step)
+    Rs, ts, images = [], [], []
+    for k in range(n_frames):
+        Rcw, tcw = camera_pose(k, motion, step)
+        img = _render(planes, K.astype(np.float64), Rcw, tcw, h, w)
+        if noise > 0:
+            img = img + rng.standard_normal(img.shape).astype(np.float32) * noise
+        images.append(np.clip(img, 0, 255).astype(np.float32))
+        Rs.append(Rcw.astype(np.float32))
+        ts.append(tcw.astype(np.float32))
+    return SyntheticSequence(images=np.stack(images), poses_Rcw=np.stack(Rs), poses_tcw=np.stack(ts),
+                             timestamps=np.arange(n_frames, dtype=np.float64) / fps, K=K)
+
+
 def _resample_texture(tex: np.ndarray, th: int, tw: int) -> np.ndarray:
     ys = np.linspace(0, tex.shape[0] - 1, th)
     xs = np.linspace(0, tex.shape[1] - 1, tw)
@@ -201,10 +261,14 @@ def _resample_texture(tex: np.ndarray, th: int, tw: int) -> np.ndarray:
 @torch.no_grad()
 def render_frames_device(planes: List[Plane], K, Rcw, tcw, h: int, w: int,
                          background: float = 25.0, chunk: int = 8, tex_h: int = 160,
-                         tex_w: int = 512, device="cpu") -> np.ndarray:
+                         tex_w: int = 512, dist=None, device="cpu") -> np.ndarray:
     """Per-pixel plane-intersection ray tracer over all planes, batched over
     `chunk` frames, on `device`. Textures are resampled to a common
-    (tex_h, tex_w) and sampled bilinearly in normalised coordinates.
+    (tex_h, tex_w) and sampled bilinearly in normalised coordinates. With
+    `dist` (OpenCV k1 k2 p1 p2 k3) the image is a distorted lens's: the ray
+    of output pixel (u, v) is the one whose distorted projection lands there,
+    found by `camera.undistort_points` on the pixel grid (the model the
+    frames undistort their keypoints with).
     Rcw (T, 3, 3), tcw (T, 3) -> (T, h, w) float32 numpy."""
     dev = torch.device(device)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
@@ -217,6 +281,12 @@ def render_frames_device(planes: List[Plane], K, Rcw, tcw, h: int, w: int,
     n = torch.cross(ex, ey, dim=-1)  # (P, 3)
     vs, us = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
                             torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    if dist is not None:
+        d5 = np.zeros(5, np.float32)  # k3 = 0 for a 4-coefficient lens
+        d5[: len(dist)] = dist
+        und = camera.undistort_points(torch.stack([us.reshape(-1), vs.reshape(-1)], -1), Kt,
+                                      f32(d5)).reshape(h, w, 2)
+        us, vs = und[..., 0], und[..., 1]
     d_cam = torch.stack([(us - Kt[0, 2]) / Kt[0, 0], (vs - Kt[1, 2]) / Kt[1, 1],
                          torch.ones_like(us)], -1)  # (h, w, 3)
     P = len(planes)
@@ -257,21 +327,23 @@ def render_frames_device(planes: List[Plane], K, Rcw, tcw, h: int, w: int,
 
 def make_rendered_sequence(n_frames: int, h: int, w: int, fx: float, fy: float,
                            motion: str = "strafe", step: float = 0.06, seed: int = 0,
-                           noise: float = 1.0, fps: float = 30.0, device="cpu") -> SyntheticSequence:
+                           noise: float = 1.0, fps: float = 30.0, dist=None, cx=None, cy=None,
+                           device="cpu") -> SyntheticSequence:
     """The worlds and trajectories of `make_sequence`, rendered on `device`
     (the JAX package's `make_rendered_sequence_device` without its disk
     cache): ring world for circle/spiral motion, else the default world;
-    Gaussian pixel noise from the same seeded generator."""
+    Gaussian pixel noise from the same seeded generator. `dist`: OpenCV
+    distortion coefficients of the lens the frames are rendered through;
+    `cx`, `cy`: the principal point (default the image centre)."""
     rng = np.random.default_rng(seed)
-    K = np.array([[fx, 0, w / 2.0], [0, fy, h / 2.0], [0, 0, 1]], np.float32)
-    if motion in ("circle", "spiral"):
-        planes = ring_world(rng)
-    else:
-        planes = default_world(rng, extent=max(n_frames * step * 1.5, 10.0))
+    cx = w / 2.0 if cx is None else cx
+    cy = h / 2.0 if cy is None else cy
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+    planes = _world(rng, motion, n_frames, step)
     poses = [camera_pose(k, motion, step) for k in range(n_frames)]
     Rcw = np.stack([p[0] for p in poses]).astype(np.float32)
     tcw = np.stack([p[1] for p in poses]).astype(np.float32)
-    images = render_frames_device(planes, K, Rcw, tcw, h, w, device=device)
+    images = render_frames_device(planes, K, Rcw, tcw, h, w, dist=dist, device=device)
     if noise > 0:
         images = images + rng.standard_normal(images.shape).astype(np.float32) * noise
     return SyntheticSequence(images=np.clip(images, 0, 255).astype(np.float32),
@@ -293,3 +365,27 @@ def ate_rmse(est_t: np.ndarray, gt_t: np.ndarray, align: bool = True) -> float:
         est = (s * ((U @ D @ Vt) @ e0.T)).T + cg
         gt = g0 + cg
     return float(np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=-1))))
+
+
+def trajectory_positions(trajectory, map_, timestamps, poses_Rcw, poses_tcw, exclude=frozenset()):
+    """A `Tracking.trajectory` log (keyframe-relative poses) resolved into
+    estimated and ground-truth camera centres, following culled keyframes'
+    parent chains (`Map.resolve_kf_pose`). Returns (est (K, 3), gt (K, 3),
+    tracked frames): every non-lost entry's sequence index is in the last,
+    resolvable or not; `exclude` frames are left out of est and gt only."""
+    ts_arr = np.asarray(timestamps)
+    est, gt, tracked = [], [], []
+    for kf_id, R_rel, t_rel, ts, lost in trajectory:
+        if lost:
+            continue
+        k = int(np.argmin(np.abs(ts_arr - ts)))
+        tracked.append(k)
+        if k in exclude:
+            continue
+        pose = map_.resolve_kf_pose(kf_id, R_rel, t_rel)
+        if pose is None:
+            continue
+        Rcw, tcw = pose
+        est.append(-Rcw.T @ tcw)
+        gt.append(-poses_Rcw[k].T @ poses_tcw[k])
+    return np.asarray(est), np.asarray(gt), tracked

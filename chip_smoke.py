@@ -36,7 +36,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      200 poses, and the matrix-free CG bundle adjustment (against the dense
      solver, and twice for bit-identical results), each on a seeded problem
      with a known answer;
-  7. `[reloc]`: `MonoSLAM` with a trained vocabulary over 104 rendered
+  7. `[reloc]`: `MonoSLAM` with a trained vocabulary over 64 rendered
      640x480 frames of the ring world with frames 44-46 blacked out: LOST,
      then relocalized from pixels without a reset, one launch of each
      kernel per frame;
@@ -56,8 +56,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      equal to the serial run's and its camera centres within 1e-3 of it,
      every stream initialised, tracked and accurate, one launch of each
      kernel per batched frame; then the same bars with `threaded=True` (a
-     mapper thread per stream) over the first 12 frames;
- 11. print the card's name and power limit.
+     mapper thread per stream) over the first 9 frames;
+ 11. `[cli]`: the mono_slam CLI as a user runs it, in this process: 60
+     frames of the strafe world rendered at 640x480 through the TUM2 lens
+     and written as a TUM folder (PNGs from a stdlib-zlib writer, rgb.txt),
+     a reference-format YAML config and an ORBvoc.txt trained on the
+     sequence; run 1 `--threaded` over frames 0-47, run 2 `--load-map
+     --localization` over a folder of frames 12-35 (a kidnapped restart in
+     the mapped area): exit code 0, state OK, the four output files parsed,
+     ATE of FrameTrajectory.txt under 1% (run 1) and 2% (run 2), run 2's
+     first frame relocalized, every frame tracked, no keyframe added, one
+     launch of each kernel per extraction; the native decoder bit-exact
+     against the plain one on the PNGs; `python -m ...cli --help` in a
+     subprocess;
+ 12. print the card's name and power limit.
 `python3 chip_smoke.py --only multistream,multisystem` runs the build, the
 spiral and the named phases only (a quicker check while developing). The
 script prints its total seconds.
@@ -68,12 +80,17 @@ last line is {"ok": true, "device": {...}}. Needs one CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
+import io
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -81,9 +98,11 @@ import torch.nn.functional as F
 
 H, W, N_FRAMES = 376, 1241, 60  # the KITTI-width spiral sequence
 TUM_H, TUM_W = 480, 640  # the relocalization and loop sequences
-RELOC_FRAMES, RELOC_BLACKOUT = 104, (44, 45, 46)  # circle, step 0.0635: 6.6 rad
-# revisit after ~63 frames; a view holds ~9% of the ring's landmarks, so 24000
-# of them fill the 2000 keypoints of a frame
+# circle, step 0.0635; 104 frames (6.6 rad) until the [cli] phase came, which
+# the cut to 64 pays for: 17 frames still follow the blackout
+RELOC_FRAMES, RELOC_BLACKOUT = 64, (44, 45, 46)
+# the loop's circle revisits after ~63 frames; a view holds ~9% of the ring's
+# landmarks, so 24000 of them fill the 2000 keypoints of a frame
 LOOP_FRAMES, LOOP_STEP, LOOP_LANDMARKS = 72, 0.1, 24000
 # NVIDIA H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -95,13 +114,21 @@ TIMING_CALLS = 50  # fn() calls captured back to back in one CUDA graph
 TIMING_REPLAYS = 5
 N_STREAMS = 8  # the multi-stream phases
 MS_FRAMES = 30  # frames a stream of [multisystem]
-# frames a stream of its threaded run: a batch frame there takes ~8.6 s on
-# any host (8 mapper threads and the tracker share one GIL), so 30 would
-# add ~150 s to the script
-MS_THREADED_FRAMES = 12
+# frames a stream of its threaded run: a batch frame there takes 6-9 s on any
+# host (8 mapper threads and the tracker share one GIL), so 30 would add
+# ~150 s to the script; 12 until the [cli] phase came, 9 since (a window of
+# 5 batch frames from MS_STEADY)
+MS_THREADED_FRAMES = 9
 MS_STEADY = 4  # [multisystem]'s batch-frame times count from here (streams initialise by then)
 JOIN_TIMEOUT_S = 600.0
 MAP_POINTS = 4096  # map points a stream of the multi-stream step
+# [cli]: a TUM-layout folder rendered through the reference's configs/TUM2.yaml
+# lens (Freiburg2 Kinect), the strafe world; run 1 maps frames 0-47, run 2
+# restarts kidnapped at frame 12 in localization mode over frames 12-35
+TUM2_K = (520.908620, 521.007327, 325.141442, 249.701764)  # fx fy cx cy
+TUM2_DIST = (0.231222, -0.784899, -0.003257, -0.000105, 0.917205)
+CLI_FRAMES, CLI_MAP_FRAMES, CLI_LOC_FRAMES = 60, 48, range(12, 36)
+CLI_STEP = 0.12
 
 
 def log(msg: str):
@@ -1084,7 +1111,7 @@ def run_multisystem(seqs, cfg, threaded: bool, n_frames: int):
 
 def phase_multisystem(seq, cfg, serial_poses, serial: dict):
     """`MultiStreamSLAM` with 8 streams over 30 rendered KITTI-width frames
-    each, then with a mapper thread per stream over the first 12 of them
+    each, then with a mapper thread per stream over the first 9 of them
     (at full rate 8 mapper threads and the tracker share one GIL, which
     stretches a batch frame several times): stream 0 is the spiral that the
     serial MonoSLAM of phase 4 ran, the others the same ring world under
@@ -1170,11 +1197,270 @@ def phase_multisystem(seq, cfg, serial_poses, serial: dict):
     return paths
 
 
+def write_png(path: str, img: np.ndarray):
+    """An 8-bit grayscale PNG from the standard library's zlib: IHDR, one
+    IDAT of unfiltered scanlines, IEND."""
+    h, w = img.shape
+    raw = np.zeros((h, w + 1), np.uint8)  # filter byte 0 (None) before each scanline
+    raw[:, 1:] = img
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_tum_folder(d: str, images: np.ndarray, timestamps, frames) -> list:
+    """`rgb.txt` and `rgb/*.png` of the TUM RGB-D layout for `frames`;
+    returns the PNG paths."""
+    os.makedirs(os.path.join(d, "rgb"), exist_ok=True)
+    paths = []
+    with open(os.path.join(d, "rgb.txt"), "w") as f:
+        f.write("# color images\n# timestamp filename\n")
+        for i in frames:
+            name = f"rgb/{timestamps[i]:.6f}.png"
+            write_png(os.path.join(d, name), images[i])
+            f.write(f"{timestamps[i]:.6f} {name}\n")
+            paths.append(os.path.join(d, name))
+    return paths
+
+
+def write_tum2_config(path: str, n_features: int):
+    """A reference-format (OpenCV FileStorage) YAML config with the TUM2
+    camera."""
+    fx, fy, cx, cy = TUM2_K
+    k1, k2, p1, p2, k3 = TUM2_DIST
+    with open(path, "w") as f:
+        f.write(f"%YAML:1.0\nCamera.fx: {fx}\nCamera.fy: {fy}\nCamera.cx: {cx}\nCamera.cy: {cy}\n"
+                f"Camera.k1: {k1}\nCamera.k2: {k2}\nCamera.p1: {p1}\nCamera.p2: {p2}\nCamera.k3: {k3}\n"
+                f"Camera.fps: 30.0\nCamera.RGB: 1\nORBextractor.nFeatures: {n_features}\n"
+                f"ORBextractor.scaleFactor: 1.2\nORBextractor.nLevels: 8\nORBextractor.iniThFAST: 20\n"
+                f"ORBextractor.minThFAST: 7\n")
+
+
+class _Tee(io.TextIOBase):
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def run_cli(argv, device: str):
+    """`cli.main(argv)` in this process, its output printed and kept:
+    (return code, output, wall seconds, launches by kernel)."""
+    from ceres_mono_orb_slam2_tpu_torch import cli
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
+
+    buf = io.StringIO()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        rc = cli.main([*argv, "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0, dict(k.launch_counts)
+
+
+def cli_summary(text: str) -> dict:
+    """The numbers of the CLI's exit lines."""
+    out = {}
+    for line in text.splitlines():
+        w = line.replace(",", "").split()
+        if line.startswith("tracked "):
+            out.update(frames=int(w[1]), state=w[4], keyframes=int(w[5]), map_points=int(w[7]))
+        elif line.startswith("re-tracked "):
+            out["retracked"] = int(w[1])
+        elif line.startswith("loaded map: "):
+            out.update(loaded_keyframes=int(w[2]), loaded_map_points=int(w[4]))
+        elif line.startswith(("median tracking time: ", "mean tracking time: ")):
+            out[w[0]] = float(w[-1])
+    return out
+
+
+def check_cli_outputs(d: str, summary: dict, seq, max_ate_pct: float) -> dict:
+    """Parse the four output files of a run; returns the checks and the
+    ATE (percent of the trajectory length, Sim(3)-aligned) of
+    FrameTrajectory.txt against the ground truth."""
+    from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse
+
+    def tum_rows(name):
+        rows = np.loadtxt(os.path.join(d, name), ndmin=2)
+        ok = rows.shape[1] == 8 and np.isfinite(rows).all() and np.allclose(
+            np.linalg.norm(rows[:, 4:], axis=1), 1.0, atol=1e-5)
+        return rows, ok
+
+    kf_rows, kf_ok = tum_rows("KeyFrameTrajectory.txt")
+    fr_rows, fr_ok = tum_rows("FrameTrajectory.txt")
+    data = np.load(os.path.join(d, "map.npz"))
+    with open(os.path.join(d, "map.yaml")) as f:
+        yaml_text = f.read()
+    idx = [int(np.argmin(np.abs(seq.timestamps - t))) for t in fr_rows[:, 0]]
+    gt = seq.gt_centers()[idx]
+    traj = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    ate = 100.0 * ate_rmse(fr_rows[:, 1:4], gt) / traj
+    checks = {
+        "KeyFrameTrajectory.txt: one TUM row per keyframe": kf_ok and len(kf_rows) == summary["keyframes"],
+        "FrameTrajectory.txt: TUM rows": fr_ok and len(fr_rows) >= 2,
+        "map.npz: every keyframe and point": (len(data["kf_ids"]) == summary["keyframes"]
+                                              and len(data["mp_ids"]) == summary["map_points"]),
+        "map.yaml: OpenCV-YAML with every keyframe and point": (
+            yaml_text.startswith("%YAML:1.0\n---\nMapPoints:\n")
+            and yaml_text.count("   - { id: ") == summary["keyframes"] + summary["map_points"]),
+        f"ATE of FrameTrajectory.txt < {max_ate_pct}% of the trajectory": ate < max_ate_pct,
+    }
+    return dict(checks=checks, ate=ate, rows=len(fr_rows), idx=idx)
+
+
+def mode_launches(cfg, voc, map_path: str, images, timestamps, device: str) -> dict:
+    """Device launches of one tracked frame (the tracker only, without local
+    mapping) against a loaded map, in localization mode and in the normal
+    mode, where it takes the fused path: a system loads the map, tracks
+    frames 12-14 in localization mode (relocalization, the reference
+    keyframe, the motion model) and frame 15 under torch.profiler, then
+    leaves the mode, tracks frame 16 (fused) and frame 17 under the
+    profiler."""
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+
+    slam = MonoSLAM(cfg, vocabulary=voc, device=device)
+    slam.load_map(map_path)
+    slam.activate_localization_mode()
+    out = {}
+    for mode, warm, measured in (("localization", (12, 13, 14), 15), ("normal", (16,), 17)):
+        if mode == "normal":
+            slam.deactivate_localization_mode()
+        for i in warm:
+            slam.track_monocular(images[i], float(timestamps[i]))
+        t0 = time.perf_counter()
+        _, n = profiled(lambda: slam.tracker.grab_image(images[measured], float(timestamps[measured])))
+        out[mode] = (n, slam.tracker.frame_stats[-1]["method"], (time.perf_counter() - t0) * 1e3)
+    slam.shutdown()
+    return out
+
+
+def phase_cli(device: str = "cuda"):
+    """The mono_slam CLI as a user runs it: a TUM-layout folder rendered
+    through the TUM2 lens (PNGs and rgb.txt), a reference-format config and
+    an ORBvoc.txt in; run 1 (`--threaded`) maps frames 0-47, run 2
+    (`--load-map --localization`) restarts kidnapped at frame 12 over frames
+    12-35 against the saved map; both in this process, so the kernels'
+    launches are counted; then `python -m ...cli --help` in a subprocess."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import bow
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import ORBExtractor
+    from ceres_mono_orb_slam2_tpu_torch.utils import native
+    from ceres_mono_orb_slam2_tpu_torch.utils.config import load_config
+    from ceres_mono_orb_slam2_tpu_torch.utils.datasets import imread_gray_plain, reader
+    from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import make_rendered_sequence
+
+    fx, fy, cx, cy = TUM2_K
+    t0 = time.perf_counter()
+    seq = make_rendered_sequence(CLI_FRAMES, TUM_H, TUM_W, fx, fy, motion="strafe", step=CLI_STEP, seed=11,
+                                 dist=np.array(TUM2_DIST, np.float32), cx=cx, cy=cy, device=device)
+    u8 = np.clip(seq.images + 0.5, 0.0, 255.0).astype(np.uint8)
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    paths = write_tum_folder(os.path.join(root, "tum"), u8, seq.timestamps, range(CLI_FRAMES))
+    write_tum_folder(os.path.join(root, "tum_kidnap"), u8, seq.timestamps, CLI_LOC_FRAMES)
+    config = os.path.join(root, "TUM2.yaml")
+    write_tum2_config(config, n_features=2000)
+    cfg = load_config(config)
+    ex = ORBExtractor(cfg.orb, device=device)
+    corpus = []
+    for i in range(0, CLI_MAP_FRAMES, 4):
+        fe = ex.extract(u8[i])
+        corpus.append(fe.desc[0][fe.valid[0]].cpu().numpy())
+    voc = bow.train_vocabulary(np.concatenate(corpus), k=10, levels=4, seed=0, docs=corpus, device=device)
+    voc_path = os.path.join(root, "ORBvoc.txt")
+    bow.dump_orbvoc_text(voc, voc_path)
+    log(f"[cli] rendered {CLI_FRAMES} frames {TUM_W}x{TUM_H} through the TUM2 lens and wrote them as a TUM "
+        f"folder, the config and a vocabulary of {voc.n_words} words (k=10, levels=4) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    checks = {}
+    if native.available():
+        same = all(np.array_equal(native.imread_gray(p), imread_gray_plain(p)) for p in paths)
+        log(f"[cli] native library built ({native.library_path().name}); native decoder against the plain "
+            f"one on the {len(paths)} PNGs: bit-exact {same}")
+        checks["native decoder bit-exact against the plain one"] = same
+    else:
+        log(f"[cli] native library NOT built: {native.build_error()}")
+    log(f"[cli] image reader: {reader()}")
+
+    out1, out2 = os.path.join(root, "run1"), os.path.join(root, "run2")
+    stats1, stats2 = os.path.join(root, "stats1.jsonl"), os.path.join(root, "stats2.jsonl")
+    rc1, text1, wall1, launches1 = run_cli(
+        ["--config", config, "--images", os.path.join(root, "tum"), "--voc", voc_path, "--threaded",
+         "--max-frames", str(CLI_MAP_FRAMES), "--output-dir", out1, "--stats-out", stats1], device)
+    s1 = cli_summary(text1)
+    res1 = check_cli_outputs(out1, s1, seq, 1.0)
+    n1 = CLI_MAP_FRAMES + s1.get("retracked", 0)
+    rc2, text2, wall2, launches2 = run_cli(
+        ["--config", config, "--images", os.path.join(root, "tum_kidnap"), "--voc", voc_path,
+         "--load-map", os.path.join(out1, "map.npz"), "--localization", "--output-dir", out2,
+         "--stats-out", stats2], device)
+    s2 = cli_summary(text2)
+    res2 = check_cli_outputs(out2, s2, seq, 2.0)
+    n2 = len(CLI_LOC_FRAMES) + s2.get("retracked", 0)
+    with open(stats2) as f:
+        st2 = [json.loads(line) for line in f]
+    methods = collections.Counter(st["method"] for st in st2)
+    frame_launches = mode_launches(cfg, voc, os.path.join(out1, "map.npz"), u8, seq.timestamps, device) \
+        if device == "cuda" else {}
+    helped = subprocess.run([sys.executable, "-m", "ceres_mono_orb_slam2_tpu_torch.cli", "--help"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                            timeout=300)
+    tmp.cleanup()
+    for name, s, wall, res, launches, n in (("run 1 (--threaded, frames 0-47)", s1, wall1, res1, launches1, n1),
+                                           ("run 2 (--load-map --localization, frames 12-35)", s2, wall2, res2,
+                                            launches2, n2)):
+        log(f"[cli] {name}: {s.get('frames')} frames, state {s.get('state')}, {s.get('keyframes')} keyframes, "
+            f"{s.get('map_points')} map points; tracking time median {s.get('median', float('nan')):.6f} s, mean "
+            f"{s.get('mean', float('nan')):.6f} s; wall {wall:.1f} s; ATE of FrameTrajectory.txt "
+            f"{res['ate']:.4f}% over {res['rows']} rows; launches {launches} over {n} extractions")
+    log(f"[cli] run 2 loaded {s2.get('loaded_keyframes')} keyframes and {s2.get('loaded_map_points')} map "
+        f"points; methods {dict(methods)}; first frame {st2[0]['method'] if st2 else None} ok "
+        f"{st2[0]['ok'] if st2 else None}, its tracking {st2[0]['track_ms'] if st2 else float('nan'):.1f} ms")
+    for mode, (n_launches, method, ms) in frame_launches.items():
+        log(f"[cli] one frame against run 1's map, {mode}: method {method}, {n_launches} device launches "
+            f"(kernels and copies), {ms:.1f} ms under the profiler")
+    log(f"[cli] python -m ceres_mono_orb_slam2_tpu_torch.cli --help: exit {helped.returncode}")
+    checks.update({
+        "run 1 exit code 0": rc1 == 0,
+        "run 1 final state OK": s1.get("state") == "OK",
+        **{f"run 1 {c}": ok for c, ok in res1["checks"].items()},
+        "run 2 exit code 0": rc2 == 0,
+        "run 2 final state OK": s2.get("state") == "OK",
+        **{f"run 2 {c}": ok for c, ok in res2["checks"].items()},
+        "run 2 loaded run 1's keyframes": s2.get("loaded_keyframes") == s1.get("keyframes"),
+        "run 2 adds no keyframe": s2.get("keyframes") == s2.get("loaded_keyframes"),
+        "run 2's first frame relocalizes": bool(st2) and st2[0]["method"] == "reloc" and st2[0]["ok"],
+        "run 2 tracks every frame": len(st2) == len(CLI_LOC_FRAMES) and all(st["ok"] for st in st2),
+        "--help in a subprocess exits 0": helped.returncode == 0 and "usage" in helped.stdout,
+    })
+    if device == "cuda":
+        for kname in ("fast_nms", "gather_patches"):
+            checks[f"run 1 {kname} launched once per extraction"] = launches1[kname] == n1
+            checks[f"run 2 {kname} launched once per extraction"] = launches2[kname] == n2
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cli checks failed: {failed}")
+    return {"cli": (launches1, n1), "cli_localization": (launches2, n2)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="", help="comma-separated later phases to run after the build "
                     "and the spiral (threaded, pipelined, bow, solvers, reloc, loop, multistream, "
-                    "multisystem); default all")
+                    "multisystem, cli); default all")
     only = [name for name in ap.parse_args().only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1195,7 +1481,8 @@ def main() -> int:
                         ("bow", lambda: phase_bow(seq, cfg)), ("solvers", phase_solvers),
                         ("reloc", phase_reloc), ("loop", phase_loop),
                         ("multistream", lambda: phase_multistream(cfg)),
-                        ("multisystem", lambda: phase_multisystem(seq, cfg, spiral_poses, spiral))):
+                        ("multisystem", lambda: phase_multisystem(seq, cfg, spiral_poses, spiral)),
+                        ("cli", phase_cli)):
         if only and name not in only:
             continue
         path, ms = timed(phase)

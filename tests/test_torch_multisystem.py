@@ -32,6 +32,21 @@ SEEDS = (11, 12, 13)
 JAX_STREAMS = 1  # the JAX system runs the first sequence (a lone stream: its single path)
 
 
+# worker threads alive before this file's tests ran (other files of the same
+# process); every thread a test here starts must be stopped when it ends
+_THREADS_BEFORE = set(threading.enumerate())
+
+
+@pytest.fixture(autouse=True)
+def no_worker_thread_left():
+    """After each test no `mapper` or `gba` thread that this file started is
+    alive: a leaked one would keep taking the GIL from later tests."""
+    yield
+    left = [t.name for t in threading.enumerate()
+            if t.name in ("mapper", "gba") and t.is_alive() and t not in _THREADS_BEFORE]
+    assert not left, f"worker threads left alive: {left}"
+
+
 def _config():
     return SlamConfig(
         camera=CameraConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, fps=30.0),

@@ -67,6 +67,30 @@ slam.shutdown()
 assert not slam._worker.is_alive() and slam.tracker._pending is None
 ms = MultiStreamSLAM(SlamConfig(), n_streams=2, threaded=True, device="cpu")
 ms.shutdown()
+# the CLI slice: dataset loaders, the native host I/O, the CLI end to end
+import os, struct, tempfile, zlib
+from ceres_mono_orb_slam2_tpu_torch import cli
+from ceres_mono_orb_slam2_tpu_torch.utils import datasets, native
+d = tempfile.mkdtemp()
+img = np.random.default_rng(0).integers(0, 256, (96, 128), dtype=np.uint8)
+chunk = lambda t, b: struct.pack(">I", len(b)) + t + b + struct.pack(">I", zlib.crc32(t + b))
+os.makedirs(os.path.join(d, "rgb"))
+with open(os.path.join(d, "rgb", "0.png"), "wb") as f:
+    f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 128, 96, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(np.insert(img, 0, 0, axis=1).tobytes())) + chunk(b"IEND", b""))
+with open(os.path.join(d, "rgb.txt"), "w") as f:
+    f.write("0.000000 rgb/0.png\n")
+ds = datasets.load_auto(d)
+assert np.array_equal(ds[0][0], img.astype(np.float32))
+assert np.array_equal(datasets.imread_gray_plain(ds.paths[0]), img.astype(np.float32))
+assert native.available() or native.build_error()
+with open(os.path.join(d, "cfg.yaml"), "w") as f:
+    f.write("%YAML:1.0\nCamera.fx: 100.0\nCamera.fy: 100.0\nCamera.cx: 64.0\nCamera.cy: 48.0\n"
+            "ORBextractor.nFeatures: 200\n")
+assert cli.main(["--config", os.path.join(d, "cfg.yaml"), "--images", d, "--output-dir", os.path.join(d, "out"),
+                 "--device", "cpu"]) == 0
+assert sorted(os.listdir(os.path.join(d, "out"))) == ["FrameTrajectory.txt", "KeyFrameTrajectory.txt",
+                                                      "map.npz", "map.yaml"]
 assert not any(name == "jax" or name.startswith("jax.") for name, mod in sys.modules.items()
                if mod is not None)
 print("OK")
@@ -187,3 +211,34 @@ def test_slice_four_modules_exist_under_the_reference_names():
     for name in ("n_batched_frames", "n_single_frames", "phase_s", "streams"):
         assert hasattr(ms, name), name
     assert set(ms.phase_s) == {"prepare", "dispatch", "fetch", "consume", "frames"}
+
+
+def test_slice_six_modules_exist_under_the_reference_names():
+    """The CLI slice (data input, native host I/O, the lens renderer, the
+    localization mode, the facade's getters and map persistence) has its
+    counterparts under the JAX package's names."""
+    names = {
+        "cli": ["main"],
+        "utils.datasets": ["ImageSequence", "load_tum", "load_kitti", "load_euroc", "load_auto"],
+        "utils.native": ["available", "build_error", "get_lib", "parse_orbvoc_raw", "dump_orbvoc_native",
+                         "imread_gray", "PrefetchLoader"],
+        "utils.synthetic": ["make_sequence", "render_frames_device", "trajectory_positions", "ate_rmse"],
+    }
+    for mod, attrs in names.items():
+        tm = importlib.import_module(f"ceres_mono_orb_slam2_tpu_torch.{mod}")
+        jm = importlib.import_module(f"ceres_mono_orb_slam2_tpu.{mod}")
+        assert all(hasattr(tm, a) and hasattr(jm, a) for a in attrs), mod
+    from ceres_mono_orb_slam2_tpu.models.system import MonoSLAM as JaxSLAM
+    from ceres_mono_orb_slam2_tpu.models.tracking import Tracking as JaxTracking
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+    from ceres_mono_orb_slam2_tpu_torch.models.tracking import Tracking
+
+    for name in ("activate_localization_mode", "deactivate_localization_mode", "n_tracked_points",
+                 "get_tracked_map_points", "get_tracked_keypoints_un", "save_frame_trajectory_tum",
+                 "save_map", "save_map_yaml", "load_map"):
+        assert hasattr(MonoSLAM, name) and hasattr(JaxSLAM, name), name
+    assert hasattr(Tracking, "_tracking_with_known_map") and hasattr(JaxTracking, "_tracking_with_known_map")
+    # the native sources are the JAX package's, byte for byte
+    for src in ("dataloader.cc", "orbvoc_io.cc"):
+        assert ((REPO / "ceres_mono_orb_slam2_tpu_torch" / "native" / src).read_bytes()
+                == (REPO / "ceres_mono_orb_slam2_tpu" / "native" / src).read_bytes()), src

@@ -18,6 +18,8 @@ unthreaded pipelined run to the bit, and the geometric front end, which the
 port chains too (the JAX package cannot: its `GeoExtractor` has no jitted
 frontend)."""
 
+import threading
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -40,6 +42,21 @@ torch.set_num_threads(2)
 TIMEOUT_S = 300.0
 N_FRAMES = 24  # of the 40-frame strafe
 PACED_FRAMES = 12
+
+
+# worker threads alive before this file's tests ran (other files of the same
+# process); every thread a test here starts must be stopped when it ends
+_THREADS_BEFORE = set(threading.enumerate())
+
+
+@pytest.fixture(autouse=True)
+def no_worker_thread_left():
+    """After each test no `mapper` or `gba` thread that this file started is
+    alive: a leaked one would keep taking the GIL from later tests."""
+    yield
+    left = [t.name for t in threading.enumerate()
+            if t.name in ("mapper", "gba") and t.is_alive() and t not in _THREADS_BEFORE]
+    assert not left, f"worker threads left alive: {left}"
 
 
 def _resolved(slam, seq):

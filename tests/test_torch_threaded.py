@@ -40,6 +40,21 @@ PACED_FRAMES = 24
 TIMEOUT_S = 300.0
 
 
+# worker threads alive before this file's tests ran (other files of the same
+# process); every thread a test here starts must be stopped when it ends
+_THREADS_BEFORE = set(threading.enumerate())
+
+
+@pytest.fixture(autouse=True)
+def no_worker_thread_left():
+    """After each test no `mapper` or `gba` thread that this file started is
+    alive: a leaked one would keep taking the GIL from later tests."""
+    yield
+    left = [t.name for t in threading.enumerate()
+            if t.name in ("mapper", "gba") and t.is_alive() and t not in _THREADS_BEFORE]
+    assert not left, f"worker threads left alive: {left}"
+
+
 def _config(n_features: int):
     return SlamConfig(
         camera=CameraConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, fps=30.0),
