@@ -5,7 +5,8 @@ Port of `ceres_mono_orb_slam2_tpu/cli.py`:
     python -m ceres_mono_orb_slam2_tpu_torch.cli --config configs/TUM2.yaml \\
         --images rgbd_dataset_freiburg2_desk [--voc ORBvoc.txt] [--output-dir out] \\
         [--threaded] [--pipelined] [--localization] [--load-map map.npz] \\
-        [--stats-out stats.jsonl] [--profile-dir trace] [--device cuda|cpu]
+        [--stats-out stats.jsonl] [--profile-dir trace] [--viewer] [--live-viewer PORT] \\
+        [--device cuda|cpu]
 
 Reads a reference-format YAML config and a TUM, KITTI or EuRoC image folder
 (or renders `--synthetic N` frames), optionally paces playback to the
@@ -15,7 +16,9 @@ KeyFrameTrajectory.txt, FrameTrajectory.txt, map.npz and map.yaml to the
 output directory. It runs on the card (`--device cuda`, the default) and
 raises where CUDA is absent; `--device cpu` runs the kernels' plain
 versions. `--load-map` leaves the tracker lost, so the first frame
-relocalizes against the loaded map.
+relocalizes against the loaded map. `--viewer` writes map snapshots to
+viewer_out/ in the current directory; `--live-viewer PORT` serves the
+interactive viewer over HTTP on 127.0.0.1 (its URL is logged).
 """
 
 from __future__ import annotations
@@ -42,9 +45,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--localization", action="store_true", help="localization-only mode")
     ap.add_argument("--load-map", help="load a map.npz saved by either package before tracking; the "
                     "first frame relocalizes against it")
-    ap.add_argument("--viewer", action="store_true", help="not ported yet: exits with an error")
+    ap.add_argument("--viewer", action="store_true",
+                    help="write a map snapshot every 10 frames to viewer_out/ in the current directory")
     ap.add_argument("--live-viewer", type=int, default=None, metavar="PORT",
-                    help="not ported yet: exits with an error")
+                    help="serve the interactive map/frame viewer with the Pangolin-menu controls on this "
+                         "HTTP port (0 = ephemeral)")
     ap.add_argument("--threaded", action="store_true",
                     help="run local mapping and loop closing on a worker thread (reference architecture)")
     ap.add_argument("--pipelined", action="store_true",
@@ -86,8 +91,6 @@ def _profiler(path: str, device):
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.viewer or args.live_viewer is not None:
-        ap.error("--viewer and --live-viewer are not ported to the PyTorch package yet")
     if not args.synthetic and not args.images:
         ap.error("one of --images or --synthetic is required")
 
@@ -119,7 +122,7 @@ def main(argv=None) -> int:
         vocabulary = parse_orbvoc_text(args.voc)
 
     slam = MonoSLAM(config, device=device, vocabulary=vocabulary, threaded=args.threaded,
-                    pipelined=args.pipelined)
+                    pipelined=args.pipelined, use_viewer=args.viewer, live_viewer_port=args.live_viewer)
     if args.load_map:
         slam.load_map(args.load_map)
         print("loaded map: %d keyframes, %d map points" % (slam.map.n_keyframes(), slam.map.n_map_points()))

@@ -12,7 +12,9 @@ step before it consumes frame k-1 (`Tracking._grab_pipelined`). With a
 vocabulary the facade builds the BoW keyframe database (relocalization) and
 the loop closer. The facade also switches localization mode, and saves and
 loads trajectories and maps in the JAX package's formats (`save_map`'s
-`.npz` loads into either package).
+`.npz` loads into either package). `use_viewer=True` writes a map snapshot
+every 10 frames (`viewer.py`); `live_viewer_port` serves the live HTTP
+viewer (`live_viewer.py`).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ class MonoSLAM:
     """Python equivalent of the reference MonoORBSlam facade."""
 
     def __init__(self, config, device=DEFAULT_DEVICE, vocabulary=None, threaded: bool = False,
-                 pipelined: bool = False, generator: Optional[torch.Generator] = None):
+                 pipelined: bool = False, generator: Optional[torch.Generator] = None,
+                 use_viewer: bool = False, live_viewer_port: Optional[int] = None):
         self.config = config
         self.device = resolve_device(device)
         self.map = Map()
@@ -76,6 +79,20 @@ class MonoSLAM:
         if threaded:
             self._worker = threading.Thread(target=self._mapping_worker, name="mapper", daemon=True)
             self._worker.start()
+        # map snapshots every 10 frames into viewer_out/ (reference
+        # MapDrawer), and the HTTP viewer with the Pangolin menu (reference
+        # Viewer.cc:70-190; port 0 picks a free port)
+        self.viewer = None
+        if use_viewer:
+            from ceres_mono_orb_slam2_tpu_torch.viewer import Viewer
+
+            self.viewer = Viewer(config, self.map, self.tracker)
+        self.live_viewer = None
+        if live_viewer_port is not None:
+            from ceres_mono_orb_slam2_tpu_torch.live_viewer import LiveViewer
+
+            self.live_viewer = LiveViewer(self, port=live_viewer_port).start()
+            log.info("live viewer at http://127.0.0.1:%d/", self.live_viewer.port)
 
     # --------------------------------------------------------------- threads
 
@@ -139,6 +156,8 @@ class MonoSLAM:
         self._raise_worker_error()
         Tcw = self.tracker.grab_image(image, timestamp)
         self._map_after_frame()
+        if self.viewer is not None:
+            self.viewer.update()
         return Tcw
 
     def _map_after_frame(self):
@@ -174,8 +193,12 @@ class MonoSLAM:
         self.tracker.localization_only = False
 
     def reset(self):
+        """Reference System::Reset. The live viewer's menu calls it from its
+        own thread: `correction_epoch` moves, so that a frame in its unlocked
+        device phase is tracked again, against the emptied map."""
         with self.map.update_lock:
             self.tracker.reset()
+            self.map.correction_epoch += 1
 
     def shutdown(self):
         """Consume the in-flight pipelined frame, stop and join the mapper
@@ -184,7 +207,9 @@ class MonoSLAM:
         it (a loop detectable on the final keyframe must correct the map
         before the savers persist it), then join the global-BA thread.
         Re-raises a failure of the mapper thread; a second call does
-        nothing new."""
+        nothing new. The live viewer stops first."""
+        if self.live_viewer is not None:
+            self.live_viewer.shutdown()
         self.tracker.flush_pipeline()
         with self._mapper_cv:
             self._shutdown = True

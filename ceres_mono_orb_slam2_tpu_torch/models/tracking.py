@@ -83,6 +83,11 @@ class Tracking:
         self.state = State.NO_IMAGES_YET
         self.last_frame: Optional[Frame] = None
         self.current: Optional[Frame] = None
+        # the image of `current` for the FrameDrawer (`viewer.py`), one
+        # reference, not a copy: set as a frame's tracking starts
+        # (`_track_serial`) or its pipelined result is consumed, so a frame
+        # left in flight does not replace it
+        self.current_image: Optional[np.ndarray] = None
         self.velocity = None  # (R, t) relative motion or None
         self.ref_kf_id: Optional[int] = None
         self.init_ref: Optional[Frame] = None
@@ -496,6 +501,9 @@ class Tracking:
         host, done = p["ctl"]
         if done is not None:
             done.synchronize()
+        # `current` becomes this frame: keep `current_image` the same frame
+        # (the newest image fed may be one ahead)
+        self.current_image = p["image"]
         # forward ids a fuse replaced since the dispatch
         # (CheckReplacedInLastFrame, Tracking.cc:504-517)
         self._check_replaced_in_last_frame()
@@ -519,6 +527,7 @@ class Tracking:
         """One synchronous frame: the fused path, or an extraction without
         map.update_lock and tracking under it. The serial mode's frame, and
         the pipelined mode's frame that cannot chain or fuse."""
+        self.current_image = image
         if self._can_fuse():
             self._grab_fused(image, timestamp)
         else:

@@ -18,8 +18,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      world at 1241x376 with 2000 ORB features, asserting initialisation,
      tracking, mapping, exactly one launch of each kernel per frame and
      trajectory accuracy;
-     `[threaded]`: the 60 frames through `MonoSLAM(threaded=True)` fed at
-     full rate (local mapping on the mapper thread), the same bars, the mapper
+     `[threaded]`: the first 40 frames through `MonoSLAM(threaded=True)` fed
+     at full rate (local mapping on the mapper thread), the same bars, the mapper
      alive until `shutdown()`; `[pipelined]`: with `pipelined=True` as well,
      paced by `wait_mapper_idle()` after each frame, a coverage check of
      chaining rather than the mode's full-rate traffic (at full rate the
@@ -51,7 +51,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      stream alone (counts equal, poses within a tolerance), the step's time
      and device launches at S=1 and S=8, one launch of each kernel a step;
      the batched local BA of 8 problems against 8 single solves;
- 10. `[multisystem]`: `MultiStreamSLAM` with 8 streams over 30 rendered
+ 10. `[multisystem]`: `MultiStreamSLAM` with 8 streams over 24 rendered
      1241x376 frames each, stream 0 the spiral of phase 4: its decisions
      equal to the serial run's and its camera centres within 1e-3 of it,
      every stream initialised, tracked and accurate, one launch of each
@@ -69,7 +69,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      launch of each kernel per extraction; the native decoder bit-exact
      against the plain one on the PNGs; `python -m ...cli --help` in a
      subprocess;
- 12. print the card's name and power limit.
+ 12. `[viewer]`: the viewers as a user runs them, on [cli]'s strafe world
+     (640x480, TUM2 lens, its config), `MonoSLAM(threaded=True)` at full
+     rate: run A over 16 frames without viewers; run B with snapshots
+     every 5 frames and the live HTTP viewer on a free port, polled by a
+     client during the frames, then the menu (localization on and off,
+     reset) and 6 frames that initialise again: the renders decode to their
+     sizes, the toggles and the reset act, no render failed, no viewer
+     thread and no open port after `shutdown()`; run C the CLI with
+     `--viewer --live-viewer 0 --threaded` over 12 frames of a TUM folder;
+     one launch of each kernel per extraction in each run; reports the
+     renders' ms and run B's median frame over run A's;
+ 13. print the card's name and power limit.
 `python3 chip_smoke.py --only multistream,multisystem` runs the build, the
 spiral and the named phases only (a quicker check while developing). The
 script prints its total seconds.
@@ -85,18 +96,21 @@ import contextlib
 import io
 import json
 import os
-import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
-import zlib
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 H, W, N_FRAMES = 376, 1241, 60  # the KITTI-width spiral sequence
+# [threaded]'s frames of the spiral: 60 until the [viewer] phase came, which
+# the cut pays for (with [multisystem]'s, below)
+THREADED_FRAMES = 40
 TUM_H, TUM_W = 480, 640  # the relocalization and loop sequences
 # circle, step 0.0635; 104 frames (6.6 rad) until the [cli] phase came, which
 # the cut to 64 pays for: 17 frames still follow the blackout
@@ -113,7 +127,7 @@ NMS_OPS = 8  # f32 max/compare of one suppression
 TIMING_CALLS = 50  # fn() calls captured back to back in one CUDA graph
 TIMING_REPLAYS = 5
 N_STREAMS = 8  # the multi-stream phases
-MS_FRAMES = 30  # frames a stream of [multisystem]
+MS_FRAMES = 24  # frames a stream of [multisystem]: 30 until the [viewer] phase came
 # frames a stream of its threaded run: a batch frame there takes 6-9 s on any
 # host (8 mapper threads and the tracker share one GIL), so 30 would add
 # ~150 s to the script; 12 until the [cli] phase came, 9 since (a window of
@@ -129,6 +143,12 @@ TUM2_K = (520.908620, 521.007327, 325.141442, 249.701764)  # fx fy cx cy
 TUM2_DIST = (0.231222, -0.784899, -0.003257, -0.000105, 0.917205)
 CLI_FRAMES, CLI_MAP_FRAMES, CLI_LOC_FRAMES = 60, 48, range(12, 36)
 CLI_STEP = 0.12
+# [viewer]: [cli]'s world, lens and config, threaded at full rate; run A
+# without the viewers, run B with both (a snapshot every VIEWER_EVERY
+# frames, the live viewer polled by a client), then VIEWER_REINIT_FRAMES
+# after a menu reset; run C the CLI with --viewer --live-viewer 0
+VIEWER_FRAMES, VIEWER_REINIT_FRAMES, VIEWER_CLI_FRAMES, VIEWER_EVERY = 16, 6, 12, 5
+RENDER_REPEATS = 10  # renders of each view timed after run B's frames
 
 
 def log(msg: str):
@@ -475,8 +495,9 @@ def phase_slam(seq, cfg):
 
 
 def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
-    """The spiral of phase 4 through `MonoSLAM(threaded=True)` fed at full
-    rate, or with `pipelined=True` as well and paced by `wait_mapper_idle()`
+    """The spiral of phase 4 (its first THREADED_FRAMES frames) through
+    `MonoSLAM(threaded=True)` fed at full rate, or all of it with
+    `pipelined=True` as well and paced by `wait_mapper_idle()`
     after each frame (a coverage check: at full rate no frame chains), then
     `shutdown()`: phase 4's bars, the mapper thread
     alive until shutdown, and for the pipelined mode chained frames and one
@@ -489,7 +510,7 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
     from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse
 
     name = "pipelined" if pipelined else "threaded"
-    n = N_FRAMES
+    n = N_FRAMES if pipelined else THREADED_FRAMES
     slam = MonoSLAM(cfg, device="cuda", threaded=True, pipelined=pipelined)
     torch.cuda.synchronize()
     k.reset_launch_counts()
@@ -522,8 +543,8 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
     traj_len = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()) if len(gt) > 1 else 0.0
     ate_pct = 100.0 * ate_rmse(est, gt) / traj_len if traj_len > 0 else float("inf")
     steady = np.asarray(frame_ms[10:])
-    serial_steady = np.asarray(serial["frame_ms"][10:])
-    serial_s = sum(serial["frame_ms"]) / 1e3
+    serial_steady = np.asarray(serial["frame_ms"][10:n])
+    serial_s = sum(serial["frame_ms"][:n]) / 1e3
     stages = ("process_new", "cull_mp", "triangulate", "fuse", "lba", "cull_kf")
     stage_ms = {st: float(np.mean([p[st] for p in lm.pass_ms if st in p] or [0.0])) for st in stages}
     mapping_s = sum(sum(v for key, v in p.items() if key != "kf") for p in lm.pass_ms) / 1e3
@@ -1110,7 +1131,7 @@ def run_multisystem(seqs, cfg, threaded: bool, n_frames: int):
 
 
 def phase_multisystem(seq, cfg, serial_poses, serial: dict):
-    """`MultiStreamSLAM` with 8 streams over 30 rendered KITTI-width frames
+    """`MultiStreamSLAM` with 8 streams over 24 rendered KITTI-width frames
     each, then with a mapper thread per stream over the first 9 of them
     (at full rate 8 mapper threads and the tracker share one GIL, which
     stretches a batch frame several times): stream 0 is the spiral that the
@@ -1197,31 +1218,18 @@ def phase_multisystem(seq, cfg, serial_poses, serial: dict):
     return paths
 
 
-def write_png(path: str, img: np.ndarray):
-    """An 8-bit grayscale PNG from the standard library's zlib: IHDR, one
-    IDAT of unfiltered scanlines, IEND."""
-    h, w = img.shape
-    raw = np.zeros((h, w + 1), np.uint8)  # filter byte 0 (None) before each scanline
-    raw[:, 1:] = img
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
-
-
 def write_tum_folder(d: str, images: np.ndarray, timestamps, frames) -> list:
     """`rgb.txt` and `rgb/*.png` of the TUM RGB-D layout for `frames`;
     returns the PNG paths."""
+    from ceres_mono_orb_slam2_tpu_torch.utils import png
+
     os.makedirs(os.path.join(d, "rgb"), exist_ok=True)
     paths = []
     with open(os.path.join(d, "rgb.txt"), "w") as f:
         f.write("# color images\n# timestamp filename\n")
         for i in frames:
             name = f"rgb/{timestamps[i]:.6f}.png"
-            write_png(os.path.join(d, name), images[i])
+            png.write(os.path.join(d, name), images[i])
             f.write(f"{timestamps[i]:.6f} {name}\n")
             paths.append(os.path.join(d, name))
     return paths
@@ -1456,11 +1464,239 @@ def phase_cli(device: str = "cuda"):
     return {"cli": (launches1, n1), "cli_localization": (launches2, n2)}
 
 
+def http_get(port: int, path: str) -> bytes:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read()
+
+
+def post_menu(port: int, form: bytes) -> int:
+    """POST a menu form; urllib follows the 303 to the page: 200."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/menu", data=form, method="POST",
+                                 headers={"Content-Type": "application/x-www-form-urlencoded"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.status
+
+
+def viewer_threads() -> list:
+    return sorted(t.name for t in threading.enumerate() if t.name.startswith("viewer-") and t.is_alive())
+
+
+def refuses(port: int) -> bool:
+    try:
+        http_get(port, "/state.json")
+    except OSError:
+        return True
+    return False
+
+
+def poll_viewer(port: int, stop: threading.Event, answers: collections.Counter, errors: list):
+    """A client of the live viewer: GET /frame.png, /map.png and
+    /state.json in turn until `stop`, counting the answers and keeping the
+    errors."""
+    while not stop.is_set():
+        for path in ("/frame.png", "/map.png", "/state.json"):
+            try:
+                http_get(port, path)
+                answers[path] += 1
+            except OSError as e:
+                errors.append(f"{path}: {e!r}")
+        stop.wait(0.05)
+
+
+def phase_viewer(device: str = "cuda"):
+    """The viewers on the path a user runs: [cli]'s strafe world at 640x480
+    through the TUM2 lens and its config, `MonoSLAM(threaded=True)` fed at
+    full rate. Run A without viewers; run B with `use_viewer=True` (a
+    snapshot every VIEWER_EVERY frames) and the live viewer on a free port,
+    polled by a client thread during the frames, then the menu: localization
+    on and off, reset, and VIEWER_REINIT_FRAMES frames that initialise again;
+    run C the CLI in this process with `--viewer --live-viewer 0
+    --threaded` over a TUM folder, from a working directory of its own.
+    Reports the renders, the ms of one map and one frame render and run B's
+    median frame over run A's: what the viewers cost the tracker."""
+    from ceres_mono_orb_slam2_tpu_torch import viewer as V
+    from ceres_mono_orb_slam2_tpu_torch.live_viewer import MENU_DEFAULTS, PLACEHOLDER
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
+    from ceres_mono_orb_slam2_tpu_torch.utils import png
+    from ceres_mono_orb_slam2_tpu_torch.utils.config import load_config
+    from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import make_rendered_sequence
+
+    fx, fy, cx, cy = TUM2_K
+    seq = make_rendered_sequence(VIEWER_FRAMES, TUM_H, TUM_W, fx, fy, motion="strafe", step=CLI_STEP, seed=11,
+                                 dist=np.array(TUM2_DIST, np.float32), cx=cx, cy=cy, device=device)
+    u8 = np.clip(seq.images + 0.5, 0.0, 255.0).astype(np.uint8)
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    config = os.path.join(root, "TUM2.yaml")
+    write_tum2_config(config, n_features=2000)
+    cfg = load_config(config)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def track(slam, frames) -> list:
+        ms = []
+        for i in frames:
+            t = time.perf_counter()
+            slam.track_monocular(u8[i], float(seq.timestamps[i]))
+            ms.append((time.perf_counter() - t) * 1e3)
+        return ms
+
+    # run A: no viewer
+    slam = MonoSLAM(cfg, device=device, threaded=True)
+    sync()
+    k.reset_launch_counts()
+    ms_a = track(slam, range(VIEWER_FRAMES))
+    slam.shutdown()
+    sync()
+    run_a = (dict(k.launch_counts), VIEWER_FRAMES + slam.tracker.n_retracked_frames)
+    state_a, kfs_a = slam.get_tracking_state(), slam.map.n_keyframes()
+
+    # run B: both viewers, a client polling the live one
+    snaps = os.path.join(root, "snapshots")
+    slam = MonoSLAM(cfg, device=device, threaded=True, use_viewer=True, live_viewer_port=0)
+    slam.viewer.out_dir, slam.viewer.every = snaps, VIEWER_EVERY
+    lv = slam.live_viewer
+    port = lv.port
+    threads_up = viewer_threads()
+    stop, answers, poll_errors = threading.Event(), collections.Counter(), []
+    client = threading.Thread(target=poll_viewer, args=(port, stop, answers, poll_errors), name="client")
+    sync()
+    k.reset_launch_counts()
+    client.start()
+    try:
+        ms_b = track(slam, range(VIEWER_FRAMES))
+        stop.set()
+        client.join(timeout=JOIN_TIMEOUT_S)
+        deadline = time.perf_counter() + 60.0  # the render of the last frame
+        while lv._last_frame_id != slam.tracker.current.id and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        frame_png, map_png = http_get(port, "/frame.png"), http_get(port, "/map.png")
+        st_b = json.loads(http_get(port, "/state.json"))
+        # one frame render and one map render, each the copy under the map
+        # lock and the drawing and encoding outside it, as the live viewer
+        # makes them
+        render_ms = {}
+        for view in ("frame", "map"):
+            t = time.perf_counter()
+            for _ in range(RENDER_REPEATS):
+                with slam.map.update_lock:
+                    g = lv.renderer.frame_geometry() if view == "frame" else lv.renderer.map_geometry()
+                if view == "frame":
+                    lv.renderer.draw_frame(io.BytesIO(), geom=g)
+                else:
+                    lv.renderer.snapshot(io.BytesIO(), geom=g)
+            render_ms[view] = (time.perf_counter() - t) * 1e3 / RENDER_REPEATS
+        codes = [post_menu(port, b"localization=on&points=on&keyframes=on&graph=on")]
+        loc_on = slam.tracker.localization_only
+        codes.append(post_menu(port, b"points=on&keyframes=on&graph=on"))
+        loc_off = not slam.tracker.localization_only
+        codes.append(post_menu(port, b"reset=1"))
+        emptied = (slam.map.n_keyframes(), slam.map.n_map_points())
+        menu_after_reset = json.loads(http_get(port, "/state.json"))["menu"]
+        ms_re = track(slam, range(VIEWER_REINIT_FRAMES))
+        state_re, kfs_re = slam.get_tracking_state(), slam.map.n_keyframes()
+        n_renders, n_render_errors = lv.n_renders, lv.n_render_errors
+    finally:
+        stop.set()
+        slam.shutdown()
+    sync()
+    run_b = (dict(k.launch_counts), VIEWER_FRAMES + VIEWER_REINIT_FRAMES + slam.tracker.n_retracked_frames)
+    threads_down, port_refused = viewer_threads(), refuses(port)
+    snap_names = sorted(os.listdir(snaps))
+    snap_shapes = set()
+    for name in snap_names:
+        with open(os.path.join(snaps, name), "rb") as f:
+            snap_shapes.add(png.decode(f.read()).shape)
+    frame_img, map_img = png.decode(frame_png), png.decode(map_png)
+    want_snaps = [f"map_{i:05d}.png" for i in range(VIEWER_EVERY, VIEWER_FRAMES + VIEWER_REINIT_FRAMES + 1,
+                                                    VIEWER_EVERY)]
+
+    # run C: the CLI
+    tum = os.path.join(root, "tum")
+    write_tum_folder(tum, u8, seq.timestamps, range(VIEWER_CLI_FRAMES))
+    work = os.path.join(root, "cli_cwd")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        rc, text, wall_c, launches_c = run_cli(["--config", config, "--images", tum, "--viewer", "--live-viewer",
+                                                "0", "--threaded", "--output-dir", os.path.join(root, "cli_out")],
+                                               device)
+    finally:
+        os.chdir(cwd)
+    s_c = cli_summary(text)
+    run_c = (launches_c, VIEWER_CLI_FRAMES + s_c.get("retracked", 0))
+    cli_snaps = sorted(os.listdir(os.path.join(work, "viewer_out")))
+    cli_shapes = set()
+    for name in cli_snaps:
+        with open(os.path.join(work, "viewer_out", name), "rb") as f:
+            cli_shapes.add(png.decode(f.read()).shape)
+    threads_after_cli = viewer_threads()
+    tmp.cleanup()
+
+    med_a, med_b = float(np.median(ms_a)), float(np.median(ms_b))
+    log(f"[viewer] run A (threaded, no viewer): {VIEWER_FRAMES} frames, state {state_a}, {kfs_a} keyframes; "
+        f"track_monocular ms median {med_a:.2f}, p95 {np.percentile(ms_a, 95):.2f}; launches {run_a[0]} over "
+        f"{run_a[1]} extractions")
+    log(f"[viewer] run B (threaded, use_viewer every {VIEWER_EVERY}, live viewer on port {port}): track_monocular "
+        f"ms median {med_b:.2f}, p95 {np.percentile(ms_b, 95):.2f} = {med_b / med_a:.3f}x run A's median; "
+        f"renders {n_renders}, render errors {n_render_errors}; client answers {dict(answers)}, errors "
+        f"{len(poll_errors)} {poll_errors[:3]}; /frame.png {frame_img.shape}, /map.png {map_img.shape}; one "
+        f"frame render {render_ms['frame']:.2f} ms, one map render {render_ms['map']:.2f} ms (mean of "
+        f"{RENDER_REPEATS}, copy, draw and PNG encode); state {st_b['state']} with {st_b['n_keyframes']} "
+        f"keyframes")
+    log(f"[viewer] run B menu: POST codes {codes}, localization on {loc_on} then off {loc_off}; after reset "
+        f"{emptied[0]} keyframes and {emptied[1]} map points, menu {menu_after_reset}; {VIEWER_REINIT_FRAMES} "
+        f"frames later state {state_re} with {kfs_re} keyframes (median {np.median(ms_re):.2f} ms); "
+        f"snapshots {snap_names} {sorted(snap_shapes)}; threads up {threads_up}, after shutdown "
+        f"{threads_down}, port refused {port_refused}; launches {run_b[0]} over {run_b[1]} extractions")
+    log(f"[viewer] run C (CLI --viewer --live-viewer 0 --threaded, {VIEWER_CLI_FRAMES} frames): exit {rc}, "
+        f"state {s_c.get('state')}, {s_c.get('keyframes')} keyframes, tracking median "
+        f"{s_c.get('median', float('nan')):.6f} s, wall {wall_c:.1f} s; viewer_out {cli_snaps} "
+        f"{sorted(cli_shapes)}; viewer threads after {threads_after_cli}; launches {launches_c} over "
+        f"{run_c[1]} extractions")
+    checks = {
+        "run A tracks": state_a == "OK" and kfs_a >= 2,
+        "both viewer threads up": threads_up == ["viewer-http", "viewer-render"],
+        "the client was answered on every endpoint, without an error": (
+            min(answers[p] for p in ("/frame.png", "/map.png", "/state.json")) > 0 and not poll_errors),
+        "/frame.png: the image and the bar, not the placeholder": (frame_png != PLACEHOLDER and frame_img.shape
+                                                                   == (TUM_H + V.BAR_H, TUM_W, 3)),
+        "/map.png: the map canvas": map_img.shape == (V.MAP_H, V.MAP_W, 3),
+        "/state.json: OK with >= 2 keyframes": st_b["state"] == "OK" and st_b["n_keyframes"] >= 2,
+        "menu POSTs answered": codes == [200, 200, 200],
+        "localization toggles on and off": loc_on and loc_off,
+        "reset empties the map": emptied == (0, 0),
+        "reset restores the menu defaults with follow on": menu_after_reset == dict(MENU_DEFAULTS, follow=True),
+        ">= 2 keyframes again after the reset": state_re == "OK" and kfs_re >= 2,
+        "snapshots every VIEWER_EVERY frames, on the map canvas": (snap_names == want_snaps
+                                                                   and snap_shapes == {(V.MAP_H, V.MAP_W, 3)}),
+        "renders made, none failed": n_renders > 0 and n_render_errors == 0,
+        "no viewer thread after shutdown": threads_down == [],
+        "the port refuses connections after shutdown": port_refused,
+        "run C exit code 0": rc == 0 and s_c.get("state") == "OK",
+        "run C: viewer_out/map_00010.png on the map canvas": (cli_snaps == ["map_00010.png"]
+                                                              and cli_shapes == {(V.MAP_H, V.MAP_W, 3)}),
+        "run C: no viewer thread after the CLI": threads_after_cli == [],
+    }
+    if device == "cuda":
+        for name, (launches, n) in (("run A", run_a), ("run B", run_b), ("run C", run_c)):
+            for kname in ("fast_nms", "gather_patches"):
+                checks[f"{name} {kname} launched once per extraction"] = launches[kname] == n
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"viewer checks failed: {failed}")
+    return {"viewer_a": run_a, "viewer": run_b, "viewer_cli": run_c}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="", help="comma-separated later phases to run after the build "
                     "and the spiral (threaded, pipelined, bow, solvers, reloc, loop, multistream, "
-                    "multisystem, cli); default all")
+                    "multisystem, cli, viewer); default all")
     only = [name for name in ap.parse_args().only.split(",") if name]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1482,7 +1718,7 @@ def main() -> int:
                         ("reloc", phase_reloc), ("loop", phase_loop),
                         ("multistream", lambda: phase_multistream(cfg)),
                         ("multisystem", lambda: phase_multisystem(seq, cfg, spiral_poses, spiral)),
-                        ("cli", phase_cli)):
+                        ("cli", phase_cli), ("viewer", phase_viewer)):
         if only and name not in only:
             continue
         path, ms = timed(phase)

@@ -3,19 +3,22 @@
 with a dumped vocabulary and `--stats-out`, then `--load-map
 --localization` over the same folder, where the first frame relocalizes
 against the loaded map and no keyframe is added; `--profile-dir` writes a
-torch.profiler trace; `--device cuda` without a card raises. About 60 s
-alone on two threads."""
+torch.profiler trace; `--viewer --live-viewer 0` writes its snapshots and
+stops its threads; `--device cuda` without a card raises. About 65 s alone
+on two threads."""
 
 import json
+import threading
 
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
-from ceres_mono_orb_slam2_tpu_torch import cli
+from ceres_mono_orb_slam2_tpu_torch import cli, viewer
 from ceres_mono_orb_slam2_tpu_torch.ops import bow
 from ceres_mono_orb_slam2_tpu_torch.ops.orb import ORBExtractor
+from ceres_mono_orb_slam2_tpu_torch.utils import png
 from ceres_mono_orb_slam2_tpu_torch.utils.config import ORBConfig
 from ceres_mono_orb_slam2_tpu.utils.synthetic import make_sequence
 
@@ -134,6 +137,19 @@ def test_refuses_what_it_cannot_do(config):
         for device in ([], ["--device", "cuda"]):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 cli.main(["--config", config, "--synthetic", "2", *device])
-    for flag in (["--viewer"], ["--live-viewer", "0"], ["--train-voc-frames", "4"]):
-        with pytest.raises(SystemExit):
-            cli.main(["--config", config, "--synthetic", "2", "--device", "cpu", *flag])
+    with pytest.raises(SystemExit):  # the JAX CLI parses the flag and never reads it
+        cli.main(["--config", config, "--synthetic", "2", "--device", "cpu", "--train-voc-frames", "4"])
+
+
+def test_viewers(config, tmp_path, monkeypatch, capsys):
+    """`--viewer --live-viewer 0`: snapshots every 10 frames into viewer_out/
+    of the current directory, the live viewer served during the run and
+    stopped with it."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["--config", config, "--synthetic", "12", "--viewer", "--live-viewer", "0",
+                     "--output-dir", "out", "--device", "cpu"]) == 0
+    assert _exit_line(capsys.readouterr().out)[:2] == (12, "OK")
+    assert sorted(p.name for p in (tmp_path / "viewer_out").iterdir()) == ["map_00010.png"]
+    with open(tmp_path / "viewer_out" / "map_00010.png", "rb") as f:
+        assert png.decode(f.read()).shape == (viewer.MAP_H, viewer.MAP_W, 3)
+    assert not [t for t in threading.enumerate() if t.name.startswith("viewer-") and t.is_alive()]

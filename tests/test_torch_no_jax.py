@@ -1,6 +1,7 @@
 """The port runs without JAX: it imports `torch` and never `jax`, not even
-through the JAX package (whose __init__ imports jax). Also holds the port's
-device renderer to the JAX package's `render_frames_device`."""
+through the JAX package (whose __init__ imports jax), and renders its
+viewers without matplotlib or PIL, which the card lacks too. Also holds the
+port's device renderer to the JAX package's `render_frames_device`."""
 
 import importlib
 import pkgutil
@@ -21,6 +22,8 @@ _NO_JAX = r"""
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["ceres_mono_orb_slam2_tpu"] = None
+sys.modules["matplotlib"] = None  # nor the card's absent renderers and image library
+sys.modules["PIL"] = None
 import importlib, pkgutil
 import numpy as np
 import ceres_mono_orb_slam2_tpu_torch as port
@@ -91,7 +94,16 @@ assert cli.main(["--config", os.path.join(d, "cfg.yaml"), "--images", d, "--outp
                  "--device", "cpu"]) == 0
 assert sorted(os.listdir(os.path.join(d, "out"))) == ["FrameTrajectory.txt", "KeyFrameTrajectory.txt",
                                                       "map.npz", "map.yaml"]
-assert not any(name == "jax" or name.startswith("jax.") for name, mod in sys.modules.items()
+# the viewer slice: snapshots and the live HTTP viewer, rendered without matplotlib
+import io
+from ceres_mono_orb_slam2_tpu_torch.utils import png
+slam = MonoSLAM(SlamConfig(), device="cpu", use_viewer=True, live_viewer_port=0)
+buf = io.BytesIO()
+slam.viewer.snapshot(buf)
+assert png.decode(buf.getvalue()).shape == (770, 1100, 3)
+slam.shutdown()
+assert not slam.live_viewer._http_thread.is_alive() and not slam.live_viewer._render_thread.is_alive()
+assert not any(name.split(".")[0] in ("jax", "matplotlib", "PIL") for name, mod in sys.modules.items()
                if mod is not None)
 print("OK")
 """
