@@ -33,6 +33,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
 
+from ceres_mono_orb_slam2_tpu_torch.models.system import JOIN_TIMEOUT_S
 from ceres_mono_orb_slam2_tpu_torch.viewer import Viewer
 
 log = logging.getLogger(__name__)
@@ -86,7 +87,6 @@ PLACEHOLDER = bytes.fromhex(
 # Pangolin menu defaults (Viewer.cc:85-91)
 MENU_DEFAULTS = {"follow": False, "points": True, "keyframes": True, "graph": True,
                  "localization": False}
-JOIN_TIMEOUT_S = 5.0
 
 
 class LiveViewer:
@@ -121,7 +121,10 @@ class LiveViewer:
 
     def shutdown(self):
         """Stop serving, close the socket and join both threads; also for a
-        viewer never started, and a second call does nothing new."""
+        viewer never started, and a second call does nothing new. A render
+        waiting on map.update_lock finishes first, so the join waits as long
+        as `MonoSLAM.shutdown` waits for the mapper: a loop correction holds
+        the lock for seconds."""
         self._stop.set()
         if self._http_thread.is_alive():
             self._server.shutdown()  # returns once serve_forever has

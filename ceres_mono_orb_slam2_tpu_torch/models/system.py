@@ -207,7 +207,8 @@ class MonoSLAM:
         it (a loop detectable on the final keyframe must correct the map
         before the savers persist it), then join the global-BA thread.
         Re-raises a failure of the mapper thread; a second call does
-        nothing new. The live viewer stops first."""
+        nothing new. The live viewer stops first, after its render in
+        progress."""
         if self.live_viewer is not None:
             self.live_viewer.shutdown()
         self.tracker.flush_pipeline()

@@ -17,17 +17,17 @@ import numpy as np
 
 MAGIC = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
+# the live viewer encodes every render, and zlib level 1 deflates a frame
+# several times faster than zlib's default 6 for a file about a quarter larger
+_ZLIB_LEVEL = 1
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
 
 
-def encode(img: np.ndarray, level: int = 1) -> bytes:
-    """An (h, w) grayscale or (h, w, 3) RGB uint8 image as PNG bytes. zlib
-    level 1 by default: the live viewer encodes every render, and level 1
-    deflates a frame several times faster than zlib's default 6 for a file
-    about a quarter larger."""
+def encode(img: np.ndarray) -> bytes:
+    """An (h, w) grayscale or (h, w, 3) RGB uint8 image as PNG bytes."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
         raise ValueError(f"PNG encode takes (h, w) or (h, w, 3) uint8, not {img.shape} {img.dtype}")
@@ -35,7 +35,7 @@ def encode(img: np.ndarray, level: int = 1) -> bytes:
     raw = np.zeros((h, 1 + img[0].size), np.uint8)  # filter byte 0 (None) before each scanline
     raw[:, 1:] = img.reshape(h, -1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2, 0, 0, 0)
-    return (MAGIC + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+    return (MAGIC + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw.tobytes(), _ZLIB_LEVEL))
             + _chunk(b"IEND", b""))
 
 

@@ -3,9 +3,10 @@
 live_viewer_port=0)`: the page, the renders, the state endpoint and the
 menu actions wired to the live system (localization toggle, reset), with
 the same assertions; the renders decode to their sizes, none failed, and no
-`viewer-*` thread outlives `shutdown()`. Then the menu logic against the JAX
-package's `LiveViewer` on one stub system. About 20 s alone on two
-threads."""
+`viewer-*` thread outlives `shutdown()`. A threaded `shutdown()` that
+arrives while a render waits seconds on the map lock still joins every
+thread. Then the menu logic against the JAX package's `LiveViewer` on one
+stub system. About 25 s alone on two threads."""
 
 import collections
 import json
@@ -44,15 +45,18 @@ def _viewer_threads():
     return [t.name for t in threading.enumerate() if t.name.startswith("viewer-") and t.is_alive()]
 
 
-def test_live_viewer_menu_and_renders():
-    cfg = SlamConfig(
+def _config():
+    return SlamConfig(
         camera=CameraConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, fps=30.0),
         orb=ORBConfig(n_features=1500),
         shapes=StaticShapes(max_local_points=2048, max_local_keyframes=12,
                             max_ba_points=1024, max_ba_obs=4096),
     )
+
+
+def test_live_viewer_menu_and_renders():
     seq = make_sequence(n_frames=6, motion="strafe", step=0.12, seed=11)
-    slam = MonoSLAM(cfg, device="cpu", live_viewer_port=0)
+    slam = MonoSLAM(_config(), device="cpu", live_viewer_port=0)
     lv = slam.live_viewer
     try:
         port = lv.port
@@ -113,6 +117,57 @@ def test_live_viewer_menu_and_renders():
     assert not served_after
     assert _viewer_threads() == []
     assert lv.n_renders > 0 and lv.n_render_errors == 0
+
+
+def test_shutdown_waits_for_a_render_behind_the_map_lock():
+    """Threaded: `shutdown()` arrives while the render thread waits on
+    map.update_lock, which another thread holds for longer than a loop
+    correction holds it (seconds). The render finishes once the lock is
+    free, and the rest of the shutdown runs: the viewer and the mapper
+    threads are joined, and nothing is counted as a render error."""
+    hold_s = 6.5
+    seq = make_sequence(n_frames=1, motion="strafe", step=0.12, seed=11)
+    slam = MonoSLAM(_config(), device="cpu", threaded=True, live_viewer_port=0)
+    lv = slam.live_viewer
+    locked, waiting, release = threading.Event(), threading.Event(), threading.Event()
+
+    def hold():
+        with slam.map.update_lock:
+            locked.set()
+            release.wait(60)
+
+    holder = threading.Thread(target=hold, name="holder")
+    try:
+        slam.track_monocular(seq.images[0], seq.timestamps[0])
+        deadline = time.time() + 30
+        while lv.n_renders < 1 and time.time() < deadline:
+            time.sleep(0.05)
+        assert lv.n_renders == 1
+        holder.start()
+        assert locked.wait(10)
+        f = slam.tracker.current
+        materialize = f._materialize_host
+
+        def materialize_then_lock():  # the render thread, just before the map lock
+            materialize()
+            waiting.set()
+
+        f._materialize_host = materialize_then_lock
+        lv._last_frame_id = -2  # render the current frame again
+        assert waiting.wait(10)
+        time.sleep(0.2)
+    except BaseException:
+        release.set()
+        slam.shutdown()
+        raise
+    threading.Timer(hold_s, release.set).start()
+    t0 = time.time()
+    slam.shutdown()
+    waited = time.time() - t0
+    holder.join(timeout=10)
+    assert not holder.is_alive() and waited > hold_s - 0.5
+    assert _viewer_threads() == [] and not slam._worker.is_alive()
+    assert lv.n_renders == 2 and lv.n_render_errors == 0
 
 
 class _StubSystem:

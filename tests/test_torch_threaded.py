@@ -10,6 +10,8 @@ host copies of `Frame` / `KeyFrame` under two threads.
 - Ports of tests/test_threaded.py (unpaced, geometric front end) and of
   tests/test_noterase.py (the SetNotErase protocol, and a threaded loop
   closure with the global-BA thread under aggressive keyframe culling).
+- A reset from another thread while a fused frame is in its device phase
+  makes the frame be tracked again against the emptied map.
 - `run_global_ba` on a thread of its own stops between chunks when its
   `stop_cb` says so and then leaves the map as it was."""
 
@@ -209,6 +211,58 @@ def test_global_ba_in_the_device_phase_retracks_the_frame(monkeypatch):
     assert slam.get_tracking_state() == "OK" and len(est) >= n_frames - 4
     traj = np.linalg.norm(np.diff(np.stack(gt), axis=0), axis=1).sum()
     assert ate_rmse(np.stack(est), np.stack(gt)) < 0.05 * traj
+
+
+def test_reset_in_the_device_phase_retracks_the_frame(monkeypatch):
+    """Threaded, paced: a reset from another thread (the live viewer's menu)
+    runs while a fused frame is in its device phase. The reset moves
+    `Map.correction_epoch`, so the frame is tracked again, as the first
+    frame of a new initialization, instead of consumed into the emptied map:
+    no keyframe, map point or trajectory entry from before the reset
+    survives, and tracking initialises again."""
+    n_frames = 12
+    cfg = _config(600)
+    Rcw, tcw = make_geo_trajectory(n_frames, "strafe", 0.12)
+    world = GeoWorld(np.random.default_rng(0), 2500, extent=10.0)
+    slam = MonoSLAM(cfg, device="cpu", threaded=True)
+    tr, m = slam.tracker, slam.map
+    gx = tr.extractor = GeoExtractor(world, cfg.camera.K, Rcw, tcw, 600, H, W,
+                                     px_noise=0.3, bit_noise=2, seed=5, device="cpu")
+    n_extract, reset_ids, k_reset = [0], [], None
+    extract, dispatch = gx.extract, tr._fused_dispatch
+
+    def counted_extract(image):
+        n_extract[0] += 1
+        return extract(image)
+
+    def dispatch_under_reset(args):
+        if not reset_ids and tr.n_fused_frames >= 3:
+            reset_ids.append(tr.last_frame.id + 1)  # the frame in its device phase
+            t = threading.Thread(target=slam.reset, name="viewer-menu")
+            t.start()
+            t.join(timeout=TIMEOUT_S)
+            assert not t.is_alive(), "the device phase holds map.update_lock"
+            assert m.n_keyframes() == 0 and m.n_map_points() == 0
+        return dispatch(args)
+
+    monkeypatch.setattr(gx, "extract", counted_extract)
+    monkeypatch.setattr(tr, "_fused_dispatch", dispatch_under_reset)
+    for k in range(n_frames):
+        slam.track_monocular(frame_image(k, H, W), k / 30.0)
+        assert slam.wait_mapper_idle(timeout=TIMEOUT_S)
+        if reset_ids and k_reset is None:
+            # the re-tracked frame starts the new initialization
+            k_reset = k
+            assert tr.state.name == "NOT_INITIALIZED" and tr.init_ref is not None
+            assert tr.init_ref.id == reset_ids[0] and m.n_keyframes() == 0
+    slam.shutdown()
+    assert tr.n_resets == 1 and tr.n_retracked_frames == 1
+    assert n_extract[0] == n_frames + 1
+    assert min(ts for *_, ts, _ in tr.trajectory) >= k_reset / 30.0
+    assert m.n_keyframes() >= 2 and slam.get_tracking_state() == "OK"
+    assert all(kf.frame_id >= reset_ids[0] for kf in m.all_keyframes())
+    for mp in m.all_map_points():
+        assert mp.ref_kf_id in m.keyframes and set(mp.observations) <= set(m.keyframes)
 
 
 def test_worker_exception_is_raised_on_the_callers_thread(monkeypatch):
