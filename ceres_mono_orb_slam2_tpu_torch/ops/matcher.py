@@ -142,7 +142,22 @@ def search_by_projection_points(kp_xy, kp_octave, kp_bits, kp_valid, kp_free,
     level window [l-1, l]; the ratio test applies only on equal levels.
     Keypoint arguments are (..., N, ...) and point arguments (..., M, ...)
     with the same leading axes (none, or one entry per stream); `th` is a
-    number or a (..., 1) tensor."""
+    number or a (..., 1) tensor. `search_by_projection_points_local`, then
+    `resolve_duplicate_targets` over all the points."""
+    best_idx, best_val, valid = search_by_projection_points_local(
+        kp_xy, kp_octave, kp_bits, kp_valid, kp_free, pr_uv, pr_level, pr_viewcos, pr_bits,
+        pr_valid, scale_factors, th, ratio)
+    valid = resolve_duplicate_targets(best_idx, best_val, valid, kp_xy.shape[-2])
+    return best_idx, best_val, valid
+
+
+def search_by_projection_points_local(kp_xy, kp_octave, kp_bits, kp_valid, kp_free,
+                                      pr_uv, pr_level, pr_viewcos, pr_bits, pr_valid,
+                                      scale_factors, th: float = 1.0, ratio: float = 0.8):
+    """The part of `search_by_projection_points` that looks at each map point
+    alone: its best keypoint, distance and ratio test, before duplicate
+    keypoints are resolved. Each point's row depends on no other point, so
+    a block of the points gives the rows of the whole for that block."""
     r = radius_by_viewing_cos(pr_viewcos) * th * scale_factors[pr_level]
     _, _, in_window = _window(pr_uv, kp_xy, r)
     kp_oct, lvl = kp_octave[..., None, :], pr_level[..., None]
@@ -154,7 +169,6 @@ def search_by_projection_points(kp_xy, kp_octave, kp_bits, kp_valid, kp_free,
     ratio_ok = (kp_octave.gather(-1, best_idx) != kp_octave.gather(-1, second_idx)) | (
         best_val.float() <= ratio * second_val.float())
     valid = pr_valid & (best_val <= TH_HIGH) & ratio_ok
-    valid = resolve_duplicate_targets(best_idx, best_val, valid, kp_xy.shape[-2])
     return best_idx, best_val, valid
 
 

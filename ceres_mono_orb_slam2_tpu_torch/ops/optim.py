@@ -187,6 +187,22 @@ def pose_optimization(K, R0, t0, pts3d, uv, inv_sigma2, valid, max_iters: int = 
                          n_inliers=active.to(torch.int32).sum(-1), cost=cost)
 
 
+def group_sum(group):
+    """x -> x summed over the ranks of a torch.distributed `group`, in place
+    (callers pass fresh results; a strided view is made contiguous first,
+    as NCCL requires); the identity without a group."""
+    if group is None:
+        return lambda x: x
+    import torch.distributed as dist
+
+    def allsum(x):
+        x = x.contiguous()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x
+
+    return allsum
+
+
 class SegmentSum:
     """Deterministic segment sums over a fixed set of observations.
 
@@ -490,7 +506,7 @@ def pcg(matvec, precond, b, iters: int):
 def bundle_adjustment_cg(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigma2,
                          obs_valid, fixed_pose, point_valid, iters: int = 20,
                          cg_iters: int = 50, chi2_th: float = CHI2_MONO,
-                         robust: bool = True) -> BAResult:
+                         robust: bool = True, group=None) -> BAResult:
     """Bundle adjustment at any map size: LM with the point block eliminated
     implicitly. `bundle_adjustment` materializes the (M, P, 6, 3) pose-point
     cross tensor, which suits local windows and is O(M P) memory for global
@@ -502,7 +518,13 @@ def bundle_adjustment_cg(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_s
 
     A fixed `iters` x `cg_iters` loop with accept/reject as `torch.where`
     masks: no host read inside the solve. The per-pose and per-point sums use
-    `SegmentSum`s built once per call, so two calls give the same bits."""
+    `SegmentSum`s built once per call, so two calls give the same bits.
+
+    With a torch.distributed `group` (the JAX package's `axis_name`), each
+    rank holds a block of the observations: every O-axis sum (the cost;
+    Hpp, Hll, bp, bl; the Schur matvec halves) is this rank's segment sum
+    followed by an all_reduce over the group, and poses and points stay
+    replicated (parallel/sharded_ba.bundle_adjustment_cg_sharded)."""
     P = R.shape[0]
     M = points.shape[0]
     dev, dt = R.device, R.dtype
@@ -513,6 +535,7 @@ def bundle_adjustment_cg(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_s
     op = obs_pose.long()
     oj = obs_point.long()
     by_pose, by_point = SegmentSum(op, P), SegmentSum(oj, M)
+    allsum = group_sum(group)
 
     def chi2_of(Rp, tp, pts):
         Xc = (Rp[op] @ pts[oj][..., None])[..., 0] + tp[op]
@@ -523,7 +546,7 @@ def bundle_adjustment_cg(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_s
     def total_cost(Rp, tp, pts):
         s, _, _ = chi2_of(Rp, tp, pts)
         c = huber_cost(s, delta) if robust else s
-        return torch.where(obs_valid, c, torch.zeros_like(c)).sum()
+        return allsum(torch.where(obs_valid, c, torch.zeros_like(c)).sum())
 
     Rp, tp, pts = R, t, points
     cost = total_cost(Rp, tp, pts)
@@ -537,10 +560,10 @@ def bundle_adjustment_cg(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_s
         B = -(Jp @ Rp[op])  # (O, 2, 3)
         wA = w[:, None, None] * A
         wB = w[:, None, None] * B
-        Hpp = by_pose(torch.einsum("oik,oil->okl", wA, A))
-        Hll = by_point(torch.einsum("oik,oil->okl", wB, B))
-        bp = by_pose(-torch.einsum("oik,oi->ok", wA, r))
-        bl = by_point(-torch.einsum("oik,oi->ok", wB, r))
+        Hpp = allsum(by_pose(torch.einsum("oik,oil->okl", wA, A)))
+        Hll = allsum(by_point(torch.einsum("oik,oil->okl", wB, B)))
+        bp = allsum(by_pose(-torch.einsum("oik,oi->ok", wA, r)))
+        bl = allsum(by_point(-torch.einsum("oik,oi->ok", wB, r)))
         Hll_d = Hll + lam * (Hll * eye3) + 1e-6 * eye3
         Hpp_d = Hpp + lam * (Hpp * eye6) + 1e-6 * eye6
         Hll_inv = torch.where(point_valid[:, None, None], _inv3x3(Hll_d),
@@ -548,11 +571,11 @@ def bundle_adjustment_cg(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_s
 
         def WT_v(v):  # (P, 6) -> (M, 3): sum_o B^T w A v[p_o]
             u = torch.einsum("oik,ok->oi", wA, v[op])  # (O, 2)
-            return by_point(torch.einsum("oik,oi->ok", B, u))
+            return allsum(by_point(torch.einsum("oik,oi->ok", B, u)))
 
         def W_x(x):  # (M, 3) -> (P, 6)
             u = torch.einsum("oik,ok->oi", wB, x[oj])
-            return by_pose(torch.einsum("oik,oi->ok", A, u))
+            return allsum(by_pose(torch.einsum("oik,oi->ok", A, u)))
 
         def S_v(v):  # implicit Schur matvec; fixed poses pinned to identity
             v0 = torch.where(free6, v, torch.zeros_like(v))

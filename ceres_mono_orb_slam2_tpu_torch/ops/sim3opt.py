@@ -28,7 +28,7 @@ import torch
 
 from ceres_mono_orb_slam2_tpu_torch.ops import lie
 from ceres_mono_orb_slam2_tpu_torch.ops.optim import (
-    SegmentSum, _proj_jacobian, _project, huber_cost, huber_weight, pcg)
+    SegmentSum, _proj_jacobian, _project, group_sum, huber_cost, huber_weight, pcg)
 
 
 class Sim3Result(NamedTuple):
@@ -150,12 +150,19 @@ def optimize_essential_graph(
     fixed,  # (P,) bool: at least the loop keyframe
     gn_iters: int = 30,
     cg_iters: int = 100,
+    group=None,
 ) -> EssentialGraphResult:
     """Sim(3) pose-graph optimization, matrix-free PCG Gauss-Newton.
 
     Jacobians use the reference's BCH approximation
     (Jr^-1 ~ I + ad/2 + ad^2/12), with left increments S <- exp(d) S:
       dr/ddelta_i =  Jl^-1(r) Adj(S_ji),   dr/ddelta_j = -Jr^-1(r)
+
+    With a torch.distributed `group` (the JAX package's `axis_name`), each
+    rank holds a block of the edges: every edge-axis sum (the cost, b, the
+    block diagonal of H, the H v matvec) is this rank's segment sum
+    followed by an all_reduce over the group, and the (P, 7) vertex state
+    stays replicated (parallel/sharded_ba.optimize_essential_graph_sharded).
     """
     P = R.shape[0]
     dev, dt = R.device, R.dtype
@@ -165,11 +172,12 @@ def optimize_essential_graph(
     eye7 = torch.eye(7, dtype=dt, device=dev)
     # every edge lands on its two vertices: one segment sum over [i-ends, j-ends]
     to_vertex = SegmentSum(torch.cat([ei, ej]), P)
+    allsum = group_sum(group)
     Adj_m = lie.sim3_adjoint(Rm, tm, sm)
 
     def cost_fn(R, t, s):
         r = _edge_residuals(R, t, s, ei, ej, Rm, tm, sm)
-        return (ew * (r * r).sum(-1)).sum()
+        return allsum((ew * (r * r).sum(-1)).sum())
 
     cost = cost_fn(R, t, s)
     lam = torch.tensor(1e-4, dtype=dt, device=dev)
@@ -178,18 +186,18 @@ def optimize_essential_graph(
         Ji = (lie.sim3_right_jacobian_inv_approx(-r) @ Adj_m) * ew[:, None, None]  # (E, 7, 7)
         Jj = -lie.sim3_right_jacobian_inv_approx(r) * ew[:, None, None]
         # gradient b = -J^T r, summed onto the vertices
-        b = to_vertex(torch.cat([-torch.einsum("eki,ek->ei", Ji, r),
-                                 -torch.einsum("eki,ek->ei", Jj, r)])) * free
+        b = allsum(to_vertex(torch.cat([-torch.einsum("eki,ek->ei", Ji, r),
+                                        -torch.einsum("eki,ek->ei", Jj, r)]))) * free
         # block diagonal of H: the Jacobi preconditioner and the damping
-        Hdiag = to_vertex(torch.cat([torch.einsum("eki,ekl->eil", Ji, Ji),
-                                     torch.einsum("eki,ekl->eil", Jj, Jj)]))
+        Hdiag = allsum(to_vertex(torch.cat([torch.einsum("eki,ekl->eil", Ji, Ji),
+                                            torch.einsum("eki,ekl->eil", Jj, Jj)])))
         Hdamp = lam * (Hdiag * eye7)
         Minv = torch.linalg.inv(Hdiag + Hdamp + 1e-6 * eye7)
 
         def Hv(x):  # damped Gauss-Newton matvec, matrix-free over the edges
             yi = torch.einsum("ekl,el->ek", Ji, x[ei]) + torch.einsum("ekl,el->ek", Jj, x[ej])
-            out = to_vertex(torch.cat([torch.einsum("eki,ek->ei", Ji, yi),
-                                       torch.einsum("eki,ek->ei", Jj, yi)]))
+            out = allsum(to_vertex(torch.cat([torch.einsum("eki,ek->ei", Ji, yi),
+                                              torch.einsum("eki,ek->ei", Jj, yi)])))
             return (out + torch.einsum("pij,pj->pi", Hdamp, x) + 1e-6 * x) * free
 
         dx = pcg(Hv, lambda v: torch.einsum("pij,pj->pi", Minv, v), b, cg_iters) * free

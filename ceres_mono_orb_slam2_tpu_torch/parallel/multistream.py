@@ -1,28 +1,41 @@
 """Batched multi-stream tracking step and batched local bundle adjustment.
 
-Port of the one-card half of `ceres_mono_orb_slam2_tpu/parallel/multistream.py`:
-S concurrent SLAM streams on one card, a leading stream axis through the
-whole per-frame device pipeline (extract -> frustum + scale prediction ->
-projection match -> pose LM). Where the JAX package vmaps a one-stream
-function, the ops here take the stream axis themselves (`ops/matcher.py`,
-`ops/frustum.py`, `ops/optim.py`), so S streams cost the launches of one:
-one FAST+NMS launch, one patch-gather launch, one Hamming product, one LM
-loop in which every stream keeps its own damping and freezes on its own
-convergence. The multi-chip sharding of the step is a later port.
+Port of `ceres_mono_orb_slam2_tpu/parallel/multistream.py`: S concurrent
+SLAM streams on one card, a leading stream axis through the whole per-frame
+device pipeline (extract -> frustum + scale prediction -> projection match
+-> pose LM). Where the JAX package vmaps a one-stream function, the ops here
+take the stream axis themselves (`ops/matcher.py`, `ops/frustum.py`,
+`ops/optim.py`), so S streams cost the launches of one: one FAST+NMS launch,
+one patch-gather launch, one Hamming product, one LM loop in which every
+stream keeps its own damping and freezes on its own convergence.
+
+`shard_step_over_mesh` runs the same step over a ("dp", "mp") mesh of ranks
+(parallel/mesh.py): streams over `dp`, the map-point axis over `mp`. Where
+XLA partitions the JAX step by itself, the collectives here are explicit.
+The one coupling across map points is the duplicate-keypoint resolution of
+the projection search, an argmin combine over `mp`
+(`resolve_duplicate_targets_sharded`); the pose solve then runs alike on
+the `mp` ranks, and the results are gathered over `dp`.
 """
 
 from __future__ import annotations
 
+import time
 from functools import partial
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ceres_mono_orb_slam2_tpu_torch.models.fused_track import _scatter_rows
 from ceres_mono_orb_slam2_tpu_torch.ops import frustum, matcher, optim
 from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import ORBExtractor
+from ceres_mono_orb_slam2_tpu_torch.parallel.mesh import (
+    axis_size, block, gather_blocks, mesh_device, synchronize)
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+NO_CLAIM = torch.iinfo(torch.int64).max  # the combine key of a point without a match
 
 
 class StreamState(NamedTuple):
@@ -50,7 +63,12 @@ def make_multistream_step(config, h: int, w: int, device=DEFAULT_DEVICE):
     extraction, frustum + scale prediction, local-map projection search
     (th=3) and the 4-round trimmed LM pose solve, all with a leading stream
     axis. Returns step(images (S, h, w), state: StreamState) -> StepResult."""
-    device = resolve_device(device)
+    return _make_step(config, h, w, resolve_device(device), mesh=None)
+
+
+def _make_step(config, h: int, w: int, device, mesh):
+    """The step of `make_multistream_step` (mesh None) or, on a ("dp", "mp")
+    mesh, of `shard_step_over_mesh`."""
     extractor = ORBExtractor(config.orb, device=device)
     K = torch.as_tensor(np.asarray(config.camera.K, np.float32), device=device)
     scales = torch.as_tensor(np.asarray(config.orb.scale_factors, np.float32), device=device)
@@ -66,23 +84,111 @@ def make_multistream_step(config, h: int, w: int, device=DEFAULT_DEVICE):
         uv, level, viewcos, visible = frustum.frustum_and_scale(
             state.Rcw, state.tcw, K, bounds, state.map_pos, state.map_normal,
             state.map_min_dist, state.map_max_dist, state.map_valid, log_scale, n_levels)
-        idx, _, mvalid = matcher.search_by_projection_points(
+        idx, hd, mvalid = matcher.search_by_projection_points_local(
             feats.xy, feats.octave, matcher.unpack_bits_pm1(feats.desc), feats.valid,
             torch.ones_like(feats.valid), uv, level, viewcos, state.map_bits, visible,
             scales, th=3.0)
+        if mesh is None:
+            mvalid = matcher.resolve_duplicate_targets(idx, hd, mvalid, n_kp)
+        else:
+            mvalid = resolve_duplicate_targets_sharded(idx, hd, mvalid, n_kp, mesh, "mp")
         # matched map-point positions into keypoint slots; unmatched points
         # go to a dummy slot, so they cannot overwrite a match
         safe_idx = torch.where(mvalid, idx, n_kp)
         pos_kp = _scatter_rows(n_kp, safe_idx, state.map_pos, 0.0)
         ok = _scatter_rows(n_kp, safe_idx, mvalid, False)
+        n_matches = mvalid.to(torch.int32).sum(-1)
+        if mesh is not None:  # every keypoint slot has one writer over mp: exact sums
+            mp_sum = optim.group_sum(mesh.get_group("mp"))
+            pos_kp, n_matches = mp_sum(pos_kp), mp_sum(n_matches)
+            ok = mp_sum(ok.to(torch.int32)) > 0
         # the live tracker's solver settings: 4 trimming rounds of 25
         # iterations, each stream frozen at its own convergence
         res = optim.pose_optimization(K, state.Rcw, state.tcw, pos_kp, feats.xy,
                                       inv_sigma2[feats.octave], ok)
-        return StepResult(Rcw=res.R, tcw=res.t, n_inliers=res.n_inliers,
-                          n_matches=mvalid.to(torch.int32).sum(-1))
+        out = StepResult(Rcw=res.R, tcw=res.t, n_inliers=res.n_inliers, n_matches=n_matches)
+        if mesh is not None:
+            out = StepResult(*(gather_blocks(x, mesh, "dp") for x in out))
+        return out
 
     return step
+
+
+def resolve_duplicate_targets_sharded(best_idx, best_val, valid, n_targets: int, mesh, axis: str):
+    """`matcher.resolve_duplicate_targets` with the queries split in
+    contiguous blocks over `mesh[axis]`, this rank holding its block: for
+    every target, the query with the smallest distance keeps it, the lowest
+    global query index on ties. Each rank packs (distance, global index)
+    into one int64 key, takes the least key per target over its queries,
+    and one all_reduce MIN over the axis gives every rank the winners.
+    Returns this rank's filtered `valid`, equal to the block of the
+    unsharded result."""
+    n_queries = best_idx.shape[-1] * axis_size(mesh, axis)
+    first = best_idx.shape[-1] * mesh.get_local_rank(axis)
+    qidx = first + torch.arange(best_idx.shape[-1], device=best_idx.device)
+    key = torch.where(valid, best_val.long() * n_queries + qidx, NO_CLAIM)
+    per_target = torch.full(best_idx.shape[:-1] + (n_targets,), NO_CLAIM, dtype=torch.int64,
+                            device=key.device)
+    per_target = per_target.scatter_reduce(-1, best_idx, key, "amin")
+    dist.all_reduce(per_target, op=dist.ReduceOp.MIN, group=mesh.get_group(axis))
+    return valid & (per_target.gather(-1, best_idx) == key)
+
+
+def resolve_duplicate_targets_over_mesh(mesh, axis: str, best_idx, best_val, valid,
+                                        n_targets: int):
+    """`resolve_duplicate_targets_sharded` on the full (..., Q) arrays,
+    given to every rank: this rank's block in, the full filtered mask out."""
+    dev = mesh_device(mesh)
+    local = [block(torch.as_tensor(a, device=dev), mesh, axis, dim=-1)
+             for a in (best_idx, best_val, valid)]
+    won = resolve_duplicate_targets_sharded(*local, n_targets, mesh, axis)
+    return gather_blocks(won, mesh, axis, dim=won.dim() - 1)
+
+
+def shard_step_over_mesh(config, h: int, w: int, mesh, device=None):
+    """Multi-device variant of `make_multistream_step` on a mesh with axes
+    ("dp", "mp"): streams over `dp`, the map-point axis over `mp`, images
+    replicated over `mp`. Returns (step, shard_images, shard_state):
+    `shard_images(images (S, h, w))` and `shard_state(state)` take the full
+    inputs and return this rank's block (the JAX package's shardings);
+    `step(images_block, state_block)` returns the full StepResult of all
+    S streams on every rank. Each rank extracts its `dp` streams, so both
+    kernels launch once per rank and step. `device` defaults to the mesh's."""
+    device = mesh_device(mesh) if device is None else resolve_device(device)
+    step = _make_step(config, h, w, device, mesh)
+
+    def over_dp(a):
+        return block(torch.as_tensor(a, device=device), mesh, "dp")
+
+    def shard_images(images):
+        return over_dp(images).contiguous()
+
+    def shard_state(state: StreamState) -> StreamState:
+        per_stream = ("Rcw", "tcw")
+        return StreamState(**{
+            name: (over_dp(a) if name in per_stream else block(over_dp(a), mesh, "mp", dim=1))
+            .contiguous() for name, a in state._asdict().items()})
+
+    return step, shard_images, shard_state
+
+
+def step_over_mesh(mesh, config, h: int, w: int, images, state: StreamState,
+                   repeats: int = 0) -> tuple:
+    """`shard_step_over_mesh` on the full inputs, given to every rank (as the
+    JAX package's sharded step takes its global arrays): the inputs sharded
+    once, then 1 + `repeats` steps on them. Returns (the full StepResult of
+    the first step on every rank, the ms of each repeated step on the host's
+    clock, each ending in a device synchronisation)."""
+    step, shard_images, shard_state = shard_step_over_mesh(config, h, w, mesh)
+    images, state = shard_images(images), shard_state(state)
+    out, ms = step(images, state), []
+    for _ in range(repeats):
+        synchronize(images.device)
+        t0 = time.perf_counter()
+        step(images, state)
+        synchronize(images.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
 
 
 def synthetic_stream_state(config, n_streams: int, n_map_points: int, seed: int = 0,

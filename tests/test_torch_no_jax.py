@@ -254,3 +254,26 @@ def test_slice_six_modules_exist_under_the_reference_names():
     for src in ("dataloader.cc", "orbvoc_io.cc"):
         assert ((REPO / "ceres_mono_orb_slam2_tpu_torch" / "native" / src).read_bytes()
                 == (REPO / "ceres_mono_orb_slam2_tpu" / "native" / src).read_bytes()), src
+
+
+def test_slice_nine_modules_exist_under_the_reference_names():
+    """The multi-device half of `parallel/` has its counterparts under the
+    JAX package's names, with the JAX package's parameters (the port's
+    `shard_step_over_mesh` takes the device last)."""
+    import inspect
+
+    names = {
+        "parallel.sharded_ba": ["bundle_adjustment_cg_sharded", "optimize_essential_graph_sharded"],
+        "parallel.multistream": ["shard_step_over_mesh"],
+    }
+    for mod, attrs in names.items():
+        tm = importlib.import_module(f"ceres_mono_orb_slam2_tpu_torch.{mod}")
+        jm = importlib.import_module(f"ceres_mono_orb_slam2_tpu.{mod}")
+        for a in attrs:
+            tp = list(inspect.signature(getattr(tm, a)).parameters)
+            jp = list(inspect.signature(getattr(jm, a)).parameters)
+            assert tp[:len(jp)] == jp and tp[len(jp):] in ([], ["device"]), (mod, a, tp, jp)
+    from ceres_mono_orb_slam2_tpu_torch.ops import optim, sim3opt
+
+    for fn in (optim.bundle_adjustment_cg, sim3opt.optimize_essential_graph):  # axis_name's counterpart
+        assert inspect.signature(fn).parameters["group"].default is None, fn.__name__
