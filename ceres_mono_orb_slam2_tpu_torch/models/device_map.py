@@ -7,7 +7,10 @@ liveness) stay on the device and only deltas are uploaded:
 - `Map.mp_dirty` accumulates the ids every host-side map operation mutates;
 - `sync()` drains it into one in-place row scatter (`_pool_scatter`);
 - `_pool_gather(slots)` compacts the per-frame local-map rows into the
-  fixed-size block the fused tracking step consumes.
+  fixed-size block the fused tracking step consumes; `gather_fills(slots)`
+  is the same gather written straight into a captured program's static
+  buffers (`utils/graphs.py`), so that no capture reads the pool's tensors,
+  which `sync` replaces after growth, a reset or a map change.
 
 Rows [0, cap) hold map points; row `cap` is a scratch row that is never
 valid, so index padding routes there. Capacity doubles on exhaustion.
@@ -18,8 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ceres_mono_orb_slam2_tpu_torch.utils.padding import bucket
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from ceres_mono_orb_slam2_tpu_torch.utils.padding import bucket
 
 
 def _pool_scatter(dev, idx, pos, normal, mind, maxd, desc, valid):
@@ -180,6 +184,13 @@ class DeviceMapPool:
         """Pool rows of the given slots (pad with self.cap for never-valid
         scratch rows): (pos, normal, mind, maxd, desc, valid) on the device."""
         return _pool_gather(*self.dev, self._to_dev(slots_padded.astype(np.int64)))
+
+    def gather_fills(self, slots_padded: np.ndarray):
+        """The rows of `gather` as six `graphs.Fill` arguments of a captured
+        program: each gathers its rows (`index_select(..., out=)`) into the
+        program's static buffer before the replay."""
+        idx = self._to_dev(slots_padded.astype(np.int64))
+        return tuple(graphs.gathered(src, idx) for src in self.dev)
 
     def slots_for_ids(self, ids: np.ndarray) -> np.ndarray:
         """Vectorised id -> slot lookup (-1 for unknown/dead)."""

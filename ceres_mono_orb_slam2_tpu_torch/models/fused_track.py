@@ -156,13 +156,15 @@ class FusedStep(nn.Module):
                 last_oct, last_angle, last_desc, last_pos, last_ok, last_local_row,
                 R_pred, t_pred, l_pos, l_normal, l_mind, l_maxd, l_desc, l_valid,
                 bounds, th_local) -> FusedOut:
-        """`th_local` is a number, or with a stream axis an (S,) tensor;
+        """`th_local` is a float32 tensor: 0-d, or with a stream axis (S,)
+        (a number would be frozen into a captured program, `utils/graphs.py`);
         `bounds` (4,) is shared by all streams."""
+        if not torch.is_tensor(th_local):
+            raise TypeError(f"FusedStep: th_local must be a tensor, got {type(th_local).__name__}")
         K = self.K
         N = cur_xy.shape[-2]
         L = l_pos.shape[-2]
-        if torch.is_tensor(th_local):
-            th_local = th_local[..., None]
+        th_local = th_local[..., None]
         und = camera.undistort_points(cur_xy, K, self.dist) if self.has_distortion else cur_xy
         cur_bits = matcher.unpack_bits_pm1(cur_desc)
         w = self.inv_sigma2[cur_oct]

@@ -14,7 +14,9 @@ the loop closer. The facade also switches localization mode, and saves and
 loads trajectories and maps in the JAX package's formats (`save_map`'s
 `.npz` loads into either package). `use_viewer=True` writes a map snapshot
 every 10 frames (`viewer.py`); `live_viewer_port` serves the live HTTP
-viewer (`live_viewer.py`).
+viewer (`live_viewer.py`). The tracker replays its per-frame device work as
+captured programs (`graphs=True`, `utils/graphs.py`); `graphs=False` runs
+it op by op, as `jax.disable_jit` does the JAX package's.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ class MonoSLAM:
 
     def __init__(self, config, device=DEFAULT_DEVICE, vocabulary=None, threaded: bool = False,
                  pipelined: bool = False, generator: Optional[torch.Generator] = None,
-                 use_viewer: bool = False, live_viewer_port: Optional[int] = None):
+                 use_viewer: bool = False, live_viewer_port: Optional[int] = None,
+                 graphs: bool = True):
         self.config = config
         self.device = resolve_device(device)
         self.map = Map()
@@ -64,11 +67,13 @@ class MonoSLAM:
                                          device=self.device)
         self.tracker = Tracking(config, self.map, self.extractor, local_mapper=self.local_mapper,
                                 relocalizer=self.keyframe_db, device=self.device,
-                                generator=generator, pipelined=pipelined)
+                                generator=generator, pipelined=pipelined, graphs=graphs)
         if self.loop_closer is not None:
             self.loop_closer.local_mapper = self.local_mapper
         self._last_big_change = 0
         self.threaded = threaded
+        # frames that first waited for the mapper (`_wait_for_wanted_keyframe`)
+        self.n_keyframe_waits = 0
         # the mapper thread's wake-ups: passes asked of it and not yet run,
         # and the stop request, under one condition that also signals idle
         self._mapper_cv = threading.Condition()
@@ -154,11 +159,25 @@ class MonoSLAM:
         (4, 4) numpy or None (pipelined: the pose of the frame before, one
         frame late)."""
         self._raise_worker_error()
+        self._wait_for_wanted_keyframe()
         Tcw = self.tracker.grab_image(image, timestamp)
         self._map_after_frame()
         if self.viewer is not None:
             self.viewer.update()
         return Tcw
+
+    def _wait_for_wanted_keyframe(self):
+        """Threaded: when the last frame wanted a keyframe that the busy
+        mapper could not take, wait for the mapper before tracking this
+        frame, so that this frame can make it. The reference drops such a
+        keyframe (a monocular tracker inserts only while local mapping is
+        idle); with the tracker replaying its frames as graphs it outruns
+        the mapper, which then falls behind by keyframe after keyframe
+        until the map no longer covers the view."""
+        if self.threaded and self.tracker.keyframe_wanted:
+            self.tracker.keyframe_wanted = False
+            self.n_keyframe_waits += 1
+            self.wait_mapper_idle(timeout=JOIN_TIMEOUT_S)
 
     def _map_after_frame(self):
         """Local mapping and loop closing after a tracked frame: handed to

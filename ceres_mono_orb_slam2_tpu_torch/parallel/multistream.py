@@ -33,6 +33,7 @@ from ceres_mono_orb_slam2_tpu_torch.ops import frustum, matcher, optim
 from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import ORBExtractor
 from ceres_mono_orb_slam2_tpu_torch.parallel.mesh import (
     axis_size, block, gather_blocks, mesh_device, synchronize)
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs as graphs_mod
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 NO_CLAIM = torch.iinfo(torch.int64).max  # the combine key of a point without a match
@@ -58,12 +59,33 @@ class StepResult(NamedTuple):
     n_matches: torch.Tensor  # (S,)
 
 
-def make_multistream_step(config, h: int, w: int, device=DEFAULT_DEVICE):
+def make_multistream_step(config, h: int, w: int, device=DEFAULT_DEVICE, graphs: bool = True):
     """Build the per-frame device step for a batch of streams: ORB
     extraction, frustum + scale prediction, local-map projection search
     (th=3) and the 4-round trimmed LM pose solve, all with a leading stream
-    axis. Returns step(images (S, h, w), state: StreamState) -> StepResult."""
-    return _make_step(config, h, w, resolve_device(device), mesh=None)
+    axis. Returns step(images (S, h, w), state: StreamState) -> StepResult.
+    With `graphs` (the default) the step is a captured program per S
+    (`utils/graphs.py`): images and state are staged into its buffers;
+    `step.programs()` reports the programs. `graphs=False` runs it op by
+    op."""
+    device = resolve_device(device)
+    step = _make_step(config, h, w, device, mesh=None)
+    if not graphs:
+        return step
+    program = graphs_mod.CapturedFunction(step, device, name="multistream_step")
+
+    def captured(images, state: StreamState) -> StepResult:
+        if not torch.is_tensor(images):  # extract()'s 8-bit entry, on the host
+            images = np.asarray(images)
+            if images.dtype != np.uint8:
+                images = np.clip(images + 0.5, 0.0, 255.0).astype(np.uint8)
+            images = torch.from_numpy(np.ascontiguousarray(images))
+        state = StreamState(*(a if torch.is_tensor(a) else torch.as_tensor(np.ascontiguousarray(a))
+                              for a in state))
+        return StepResult(*program(images, state))
+
+    captured.programs = program.report
+    return captured
 
 
 def _make_step(config, h: int, w: int, device, mesh):

@@ -14,6 +14,12 @@ of the streams goes through one set of launches:
 - one stacked upload of each small host input and ONE device-to-host copy of
   all streams' packed control buffers.
 
+With `graphs=True` (the default) that device phase is one captured program
+per number of batched streams S' (`utils/graphs.py`; no lane padding, so at
+most one per S' <= S): the per-stream local-map gathers and the stacks of
+the last frames' features write the program's static buffers before the
+replay.
+
 Streams that cannot fuse on a frame (initialising, LOST, fallback states)
 take their ordinary single-stream path that frame; only the streams that can
 fuse are batched (S' <= S, whatever lanes they are), and a lone one takes
@@ -30,6 +36,7 @@ re-tracks.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import List, Optional
 
@@ -39,6 +46,7 @@ import torch
 from ceres_mono_orb_slam2_tpu_torch.models import fused_track
 from ceres_mono_orb_slam2_tpu_torch.models.device_map import _pool_gather
 from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs as graphs_mod
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -49,13 +57,13 @@ class MultiStreamSLAM:
 
     def __init__(self, config, n_streams: int, vocabulary=None,
                  vocabularies: Optional[list] = None, threaded: bool = False,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, graphs: bool = True):
         self.config = config
         self.n_streams = n_streams
         self.device = resolve_device(device)
         vocs = vocabularies if vocabularies is not None else [vocabulary] * n_streams
         self.streams: List[MonoSLAM] = [
-            MonoSLAM(config, device=self.device, vocabulary=vocs[s], threaded=threaded)
+            MonoSLAM(config, device=self.device, vocabulary=vocs[s], threaded=threaded, graphs=graphs)
             for s in range(n_streams)
         ]
         # all streams share one extractor and one fused step (same config,
@@ -69,6 +77,13 @@ class MultiStreamSLAM:
             # a pending in-flight frame would never be consumed in order by
             # track_batch's direct prepare / consume calls
             s.tracker.pipelined = False
+        self.graphs = bool(graphs)
+        # the batched device phase, captured per S' (its capture holds every
+        # stream's map lock)
+        self._frontend_fn = _batched_frontend(self.extractor, self.fused_step)
+        self.program = graphs_mod.CapturedFunction(
+            self._frontend_fn, self.device, name="batched_frontend",
+            lock=lambda maps=[s.map for s in self.streams]: _holding(m.update_lock for m in maps))
         self.n_batched_frames = 0
         self.n_single_frames = 0
         # cumulative wall-time split of the batched frames (seconds): host
@@ -83,19 +98,27 @@ class MultiStreamSLAM:
         """The device phase of the streams whose `_fused_prepare` args are
         given: (out, feats, ctl) with a leading axis over those streams,
         `ctl` the packed control buffers on the host."""
-        up = lambda k: torch.from_numpy(np.stack([a[k] for a in args])).to(self.device)  # noqa: E731
-        on_dev = lambda k: torch.stack([a[k] for a in args])  # noqa: E731
-        feats = self.extractor.extract(np.stack([a[0] for a in args]))
-        th_local = torch.tensor([a[9] for a in args], dtype=torch.float32, device=self.device)
-        # per-stream local-map gathers (the pools differ), one upload of all
-        # streams' slots; the gathered L-blocks share shapes and stack
-        slots = up(10)
-        blocks = [_pool_gather(*a[11].dev, slots[k]) for k, a in enumerate(args)]
-        lblock = [torch.stack([b[i] for b in blocks]) for i in range(6)]
-        out = self.fused_step(feats.xy, feats.octave, feats.angle, feats.desc, feats.valid,
-                              on_dev(1), on_dev(2), on_dev(3), up(4), up(5), up(6), up(7), up(8),
-                              *lblock, args[0][12], th_local)
-        packed = fused_track.pack_control(out, feats.valid)
+        host = lambda k: torch.from_numpy(np.stack([a[k] for a in args]))  # noqa: E731
+        slots = host(10).to(self.device)  # one upload of all streams' slots
+        if self.graphs:
+            # the gathers from the streams' pools (they differ) and the
+            # stacks write the program's static buffers
+            lblock = [graphs_mod.Fill(
+                slots.shape + args[0][11].dev[i].shape[1:], args[0][11].dev[i].dtype,
+                lambda dst, i=i: [torch.index_select(a[11].dev[i], 0, slots[k], out=dst[k])
+                                  for k, a in enumerate(args)]) for i in range(6)]
+            out, feats, packed = self.program(
+                host(0), *(graphs_mod.stacked(a[k] for a in args) for k in (1, 2, 3)),
+                *(host(k) for k in (4, 5, 6, 7, 8)), tuple(lblock), args[0][12], host(9))
+        else:
+            up = lambda k: host(k).to(self.device)  # noqa: E731
+            # per-stream local-map gathers; the gathered L-blocks share shapes
+            # and stack
+            blocks = [_pool_gather(*a[11].dev, slots[k]) for k, a in enumerate(args)]
+            lblock = [torch.stack([b[i] for b in blocks]) for i in range(6)]
+            out, feats, packed = self._frontend_fn(
+                up(0), *(torch.stack([a[k] for a in args]) for k in (1, 2, 3)),
+                *(up(k) for k in (4, 5, 6, 7, 8)), lblock, args[0][12], up(9))
         t_fetch = time.perf_counter()
         return out, feats, packed.cpu().numpy(), t_fetch
 
@@ -117,6 +140,7 @@ class MultiStreamSLAM:
         preps = [None] * S
         for i, sysm in enumerate(self.streams):
             tr = sysm.tracker
+            sysm._wait_for_wanted_keyframe()
             if tr._can_fuse() and tr.extractor is self.extractor:
                 with sysm.map.update_lock:
                     preps[i] = tr._fused_prepare(images[i], timestamps[i])
@@ -169,6 +193,33 @@ class MultiStreamSLAM:
         sysm._map_after_frame()
         return sysm.tracker._last_T()
 
+    def programs(self) -> list:
+        """`CapturedFunction.report()` of the batched program per S'."""
+        return self.program.report()
+
     def shutdown(self):
         for s in self.streams:
             s.shutdown()
+
+
+def _batched_frontend(extractor, fused_step):
+    """The batched device phase on its (S', ...) inputs: one extraction, the
+    fused step with the stream axis, the packed control buffers."""
+    def frontend(images, last_oct, last_angle, last_desc, last_pos, last_ok, last_local_row,
+                 R_pred, t_pred, lblock, bounds, th_local):
+        feats = extractor.extract(images)
+        out = fused_step(feats.xy, feats.octave, feats.angle, feats.desc, feats.valid,
+                         last_oct, last_angle, last_desc, last_pos, last_ok, last_local_row,
+                         R_pred, t_pred, *lblock, bounds, th_local)
+        return out, feats, fused_track.pack_control(out, feats.valid)
+
+    return frontend
+
+
+@contextlib.contextmanager
+def _holding(locks):
+    """Hold every lock of `locks`, taken in order."""
+    with contextlib.ExitStack() as stack:
+        for lock in locks:
+            stack.enter_context(lock)
+        yield

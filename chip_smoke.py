@@ -17,7 +17,21 @@ Phases (each prints its own lines; any failure exits non-zero):
   4. run the serial `MonoSLAM` over 60 rendered frames of the spiral ring
      world at 1241x376 with 2000 ORB features, asserting initialisation,
      tracking, mapping, exactly one launch of each kernel per frame and
-     trajectory accuracy;
+     trajectory accuracy; every system of this and the later phases replays
+     its captured programs (`utils/graphs.py`: the frontend, the pose solve,
+     the batched step), and the kernel launches are counted through the
+     replays;
+     `[graphs]`: replay against eager in one process, each frame through a
+     system with graphs and one with graphs=False in turn: every fused or
+     chained frame's FusedOut fields, features and control buffer and every
+     pose equal to the bit on the spiral's first 16 frames serial and
+     pipelined, on 16 frames of the geometric strafe pipelined (it chains),
+     on [reloc]'s frames 0-52 and a blinded tracker's relocalization (the
+     captured pose solve) with its fused frame at th_local 5.0; one S=8
+     `make_multistream_step`; the median frame of both; one fused frame of
+     each under torch.profiler: its host API launches (`cudaLaunchKernel`,
+     `cudaGraphLaunch`) and copies, and its kernels on the card against the
+     replay-counted launches; the memory of every program;
      `[threaded]`: the first 32 frames through `MonoSLAM(threaded=True)` fed
      at full rate (local mapping on the mapper thread), the same bars, the mapper
      alive until `shutdown()`; `[pipelined]`: with `pipelined=True` as well,
@@ -96,9 +110,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      the transport's collectives, each solve's ms beside the single
      process's;
  14. print the card's name and power limit.
-`python3 chip_smoke.py --only multistream,multisystem` (or `--only sharded`)
-runs the build, the kernel checks, the spiral and the named phases only (a quicker check while developing). The
-script prints its total seconds.
+`python3 chip_smoke.py --only multistream,multisystem` (or `--only sharded`,
+`--only graphs`) runs the build, the kernel checks, the spiral and the named
+phases only (a quicker check while developing). The script prints its total
+seconds.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs one CUDA device.
 """
@@ -108,6 +123,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import functools
 import io
 import json
 import os
@@ -178,6 +194,11 @@ RENDER_REPEATS = 10  # renders of each view timed after run B's frames
 SHARDED_RANKS, SHARDED_POSES, SHARDED_POINTS, SHARDED_VIEWS = 4, 1000, 100_000, 6
 SHARDED_RING = 1000
 SHARDED_TIMEOUT_S = 400.0  # the ranks' collectives and the join of all of them
+# [graphs]: replay against eager in one process: the spiral's first frames
+# serial and pipelined, the geometric strafe pipelined (it chains), [reloc]'s
+# frames up to and after the blackout then a blinded tracker's
+# relocalization and its wide-radius fused frame, one S=8 batched step
+GRAPH_FRAMES, GRAPH_GEO_FRAMES, GRAPH_RELOC_FRAMES = 16, 16, 53
 
 
 def log(msg: str):
@@ -873,13 +894,13 @@ def trajectory_ate(slam, seq):
     return 100.0 * ate_rmse(est, gt) / traj, float(est.sum())
 
 
-def phase_reloc():
-    """Kidnap relocalization from pixels at TUM width: the ring world on a
-    circle, three black frames mid-ring, a vocabulary trained on the
-    sequence's own descriptors."""
-    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+@functools.lru_cache(maxsize=1)
+def reloc_setup():
+    """[reloc]'s inputs, made once a process ([graphs] runs them too): the
+    ring world on a circle at TUM width, a vocabulary trained on the
+    sequence's own descriptors, the images with three black frames mid-ring.
+    Returns (config, sequence, vocabulary, images)."""
     from ceres_mono_orb_slam2_tpu_torch.ops import bow
-    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
     from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import ORBExtractor
     from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import make_rendered_sequence
 
@@ -897,9 +918,19 @@ def phase_reloc():
     log(f"[reloc] rendered {RELOC_FRAMES} frames {TUM_W}x{TUM_H} and extracted {len(corpus)} of them in "
         f"{t1 - t0:.1f} s; vocabulary (k=10, levels=4) of {voc.n_words} words trained on "
         f"{sum(len(c) for c in corpus)} descriptors in {time.perf_counter() - t1:.1f} s")
-
     images = seq.images.copy()
     images[list(RELOC_BLACKOUT)] = 0.0  # kidnap: three black frames mid-ring
+    return cfg, seq, voc, images
+
+
+def phase_reloc():
+    """Kidnap relocalization from pixels at TUM width: the ring world on a
+    circle, three black frames mid-ring, a vocabulary trained on the
+    sequence's own descriptors."""
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
+
+    cfg, seq, voc, images = reloc_setup()
     slam = MonoSLAM(cfg, vocabulary=voc, device="cuda")
     k.reset_launch_counts()
     states, frame_ms = [], []
@@ -1945,10 +1976,244 @@ def _same(a, b) -> bool:
     return a == b
 
 
+def record_phases(tracker) -> list:
+    """Every device phase of `tracker` from now on, in order: (kind,
+    th_local, FusedOut, features, packed control buffer)."""
+    seen = []
+    dispatch, chained = tracker._fused_dispatch, tracker._dispatch_chained
+
+    def fused(args):
+        out, feats, ctl, lblock = dispatch(args)
+        seen.append(("fused", float(args[9]), out, feats, ctl))
+        return out, feats, ctl, lblock
+
+    def chain(image, p):
+        out, feats, copy = chained(image, p)
+        seen.append(("chained", 1.0, out, feats, copy[0]))
+        return out, feats, copy
+
+    tracker._fused_dispatch, tracker._dispatch_chained = fused, chain
+    return seen
+
+
+def first_difference(a: list, b: list):
+    """Where two recorded device-phase lists first differ in a bit, or None."""
+    if len(a) != len(b):
+        return f"{len(a)} against {len(b)} device phases"
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x[:2] != y[:2]:
+            return f"device phase {i}: {x[:2]} against {y[:2]}"
+        named = lambda r: ([(f"out.{n}", t) for n, t in zip(r[2]._fields, r[2])]  # noqa: E731
+                           + [(f"feats.{n}", t) for n, t in zip(r[3]._fields, r[3])] + [("ctl", r[4])])
+        for (name, u), (_, v) in zip(named(x), named(y)):
+            if u.dtype != v.dtype or u.shape != v.shape or not torch.equal(u.cpu(), v.cpu()):
+                return f"device phase {i} ({x[0]}): {name}"
+    return None
+
+
+def first_pose_difference(a: list, b: list):
+    if len(a) != len(b):
+        return f"{len(a)} against {len(b)} poses"
+    for i, (x, y) in enumerate(zip(a, b)):
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+            return f"pose {i}"
+    return None
+
+
+def graph_pair(cfg, **kw) -> list:
+    """[(system, its recorded device phases)] for a MonoSLAM that replays
+    its programs and one that runs op by op (graphs=False)."""
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+
+    pair = []
+    for graphs in (True, False):
+        slam = MonoSLAM(cfg, device="cuda", graphs=graphs, **kw)
+        pair.append((slam, record_phases(slam.tracker)))
+    return pair
+
+
+def lockstep(pair, frames, images, timestamps):
+    """Each frame through both systems in turn: per system its poses and the
+    host ms of each `track_monocular` call (ending in a synchronisation)."""
+    poses, frame_ms = [[], []], [[], []]
+    for i in frames:
+        for j, (slam, _) in enumerate(pair):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            poses[j].append(slam.track_monocular(images[i], float(timestamps[i])))
+            torch.cuda.synchronize()
+            frame_ms[j].append((time.perf_counter() - t) * 1e3)
+    return poses, frame_ms
+
+
+def api_launches(fn):
+    """(fn()'s result, the host API calls that launch or copy by name, the
+    device kernels by name) of one call under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    api, dev = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.name] += 1
+        elif e.name.startswith("cu") and ("Launch" in e.name or "Memcpy" in e.name):
+            api[e.name] += 1
+    return out, api, dev
+
+
+def phase_graphs(seq, cfg):
+    """Replay against eager in one process, each frame through a MonoSLAM
+    that replays its programs and one with graphs=False in turn: every
+    device phase's FusedOut fields, features and control buffer and every
+    pose equal to the bit on the spiral serial and pipelined, on the
+    geometric strafe pipelined (it chains), on [reloc]'s frames up to and
+    after the blackout and on a blinded tracker's relocalization (the
+    captured pose solve) and its wide-radius fused frame; one S=8 batched
+    step; the host API launches of one fused frame from torch.profiler
+    against the replay-counted kernel launches; each program's memory."""
+    from ceres_mono_orb_slam2_tpu_torch.models.tracking import State
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
+    from ceres_mono_orb_slam2_tpu_torch.parallel import multistream as ms
+    from ceres_mono_orb_slam2_tpu_torch.utils.geosim import (
+        GeoExtractor, GeoWorld, frame_image, make_geo_trajectory)
+
+    # inputs first: [reloc]'s vocabulary and the synthetic stream state extract too
+    rcfg, rseq, voc, images = reloc_setup()
+    images8, state = ms.synthetic_stream_state(cfg, N_STREAMS, MAP_POINTS, seed=0, h=H, w=W, device="cuda")
+    images8 = torch.from_numpy(np.clip(images8 + 0.5, 0.0, 255.0).astype(np.uint8)).cuda()
+    k.reset_launch_counts()
+    n_extract, checks = 0, {}
+    mb = lambda progs: [(p["name"], max(p["shapes"], key=np.prod), round(p["pool_mb"], 1),  # noqa: E731
+                         round(p["input_mb"], 2), p["captures"], p["replays"]) for p in progs]
+
+    # the spiral, serial: frame times side by side, then one fused frame of
+    # each system under the profiler (the tracker only, mapping after it)
+    pair = graph_pair(cfg)
+    poses, frame_ms = lockstep(pair, range(GRAPH_FRAMES), seq.images, seq.timestamps)
+    n_extract += 2 * GRAPH_FRAMES
+    profiles = []
+    for slam, _ in pair:
+        before = dict(k.launch_counts)
+        i = GRAPH_FRAMES
+        _, api, dev = api_launches(lambda: slam.tracker.grab_image(seq.images[i], float(seq.timestamps[i])))
+        slam._map_after_frame()
+        counted = {name: k.launch_counts[name] - before[name] for name in before}
+        on_card = {name: sum(n for ev, n in dev.items() if f"{name}_kernel" in ev) for name in before}
+        stats = slam.tracker.frame_stats
+        profiles.append((api, counted, on_card, stats[-1]["method"] if stats else None))
+    n_extract += 2
+    torch.cuda.synchronize()
+    diff = first_difference(pair[0][1], pair[1][1]) or first_pose_difference(*poses)
+    med = [float(np.median(m[10:])) for m in frame_ms]
+    launches_api = [sum(n for name, n in api.items() if "Launch" in name) for api, *_ in profiles]
+    (g_api, g_counted, g_card, g_method), (e_api, e_counted, e_card, e_method) = profiles
+    log(f"[graphs] spiral serial, {GRAPH_FRAMES} frames: {len(pair[0][1])} fused frames, replay against eager "
+        f"to the bit: {diff is None}{'' if diff is None else ' (' + diff + ')'}; median frame ms (frames 10+) "
+        f"graphs {med[0]:.2f}, eager {med[1]:.2f} ({med[1] / med[0]:.2f}x); programs (name, largest input, "
+        f"pool MB, input MB, captures, replays) {mb(pair[0][0].tracker.programs())}")
+    log(f"[graphs] one fused frame under torch.profiler ({g_method} / {e_method}): host API launches graphs "
+        f"{launches_api[0]} ({dict(g_api.most_common(6))}), eager {launches_api[1]} "
+        f"({dict(e_api.most_common(6))}); kernels counted through the replay {g_counted}, on the card "
+        f"{g_card}; eager counted {e_counted}, on the card {e_card}")
+    checks["spiral serial: replay equal to eager to the bit"] = diff is None and len(pair[0][1]) >= 10
+    checks["the profiled frames are fused"] = g_method == e_method == "fused"
+    checks["a fused frame is one graph launch"] = sum(n for name, n in g_api.items() if "GraphLaunch" in name) == 1
+    checks["replay-counted kernel launches equal the card's, one each"] = (
+        g_counted == g_card == e_counted == e_card == {"fast_nms": 1, "gather_patches": 1})
+    del pair
+
+    # the spiral, pipelined at full rate (unthreaded)
+    pair = graph_pair(cfg, pipelined=True)
+    poses, _ = lockstep(pair, range(GRAPH_FRAMES), seq.images, seq.timestamps)
+    for slam, _ in pair:
+        slam.shutdown()
+    torch.cuda.synchronize()
+    trs = [slam.tracker for slam, _ in pair]
+    n_extract += 2 * GRAPH_FRAMES + sum(tr.n_retracked_frames for tr in trs)
+    trajs = [slam.get_frame_trajectory() for slam, _ in pair]
+    diff = (first_difference(pair[0][1], pair[1][1]) or first_pose_difference(*poses)
+            or first_pose_difference(list(trajs[0][1]), list(trajs[1][1])))
+    log(f"[graphs] spiral pipelined, {GRAPH_FRAMES} frames: {len(pair[0][1])} device phases, chained "
+        f"{trs[0].n_chained_frames} / {trs[1].n_chained_frames}, re-tracked {trs[0].n_retracked_frames}; replay "
+        f"against eager to the bit (phases, poses, drained trajectory): {diff is None}"
+        f"{'' if diff is None else ' (' + diff + ')'}")
+    checks["spiral pipelined: replay equal to eager to the bit"] = diff is None
+    del pair
+
+    # the geometric strafe, pipelined: it chains at full rate
+    gcfg = slam_config(TUM_H, TUM_W)
+    Rcw, tcw = make_geo_trajectory(GRAPH_GEO_FRAMES, "strafe", 0.12)
+    world = GeoWorld(np.random.default_rng(0), 2500, extent=10.0)
+    pair = graph_pair(gcfg, pipelined=True)
+    for slam, _ in pair:
+        slam.tracker.extractor = GeoExtractor(world, gcfg.camera.K, Rcw, tcw, gcfg.orb.n_features, TUM_H,
+                                              TUM_W, px_noise=0.3, bit_noise=2, seed=5, device="cuda")
+    frames = [frame_image(i, TUM_H, TUM_W) for i in range(GRAPH_GEO_FRAMES)]
+    poses, _ = lockstep(pair, range(GRAPH_GEO_FRAMES), frames, np.arange(GRAPH_GEO_FRAMES) / 30.0)
+    for slam, _ in pair:
+        slam.shutdown()
+    torch.cuda.synchronize()
+    trs = [slam.tracker for slam, _ in pair]
+    diff = first_difference(pair[0][1], pair[1][1]) or first_pose_difference(*poses)
+    log(f"[graphs] geometric strafe pipelined, {GRAPH_GEO_FRAMES} frames: chained {trs[0].n_chained_frames} / "
+        f"{trs[1].n_chained_frames}; replay against eager to the bit: {diff is None}"
+        f"{'' if diff is None else ' (' + diff + ')'}")
+    checks["geometric strafe pipelined: chains, replay equal to eager to the bit"] = (
+        diff is None and trs[0].n_chained_frames > 0)
+    del pair
+
+    # [reloc]'s frames to GRAPH_RELOC_FRAMES, then both trackers blinded:
+    # a relocalization through the captured pose solve and the fused frame
+    # after it at the widened radius (th_local 5.0)
+    pair = graph_pair(rcfg, vocabulary=voc)
+    poses, _ = lockstep(pair, range(GRAPH_RELOC_FRAMES), images, rseq.timestamps)
+    for slam, _ in pair:
+        slam.tracker.state, slam.tracker.velocity = State.LOST, None
+    more, _ = lockstep(pair, (GRAPH_RELOC_FRAMES, GRAPH_RELOC_FRAMES + 1), images, rseq.timestamps)
+    for slam, _ in pair:
+        slam.shutdown()
+    torch.cuda.synchronize()
+    n_extract += 2 * (GRAPH_RELOC_FRAMES + 2)
+    diff = first_difference(pair[0][1], pair[1][1]) or first_pose_difference(
+        poses[0] + more[0], poses[1] + more[1])
+    tr = pair[0][0].tracker
+    methods = [(st["frame_id"], st["method"], st["ok"]) for st in tr.frame_stats if st["frame_id"] >= 43]
+    wide = [th for _, th, *_ in pair[0][1] if th != 1.0]
+    log(f"[graphs] [reloc]'s frames 0-{GRAPH_RELOC_FRAMES - 1}, then blinded at {GRAPH_RELOC_FRAMES}: methods "
+        f"{methods}; fused frames at th_local 5.0: {len(wide)}; replay against eager to the bit: "
+        f"{diff is None}{'' if diff is None else ' (' + diff + ')'}; programs {mb(tr.programs())}")
+    checks["[reloc] frames and the blinded relocalization: replay equal to eager to the bit"] = diff is None
+    last2 = [(st["method"], st["ok"]) for st in tr.frame_stats[-2:]]
+    checks["the blinded tracker relocalizes, then fuses at th_local 5.0"] = (
+        last2 == [("reloc", True), ("fused", True)] and pair[0][1][-1][1] == 5.0)
+    del pair
+
+    # one S=8 batched step
+    steps = [ms.make_multistream_step(cfg, H, W, device="cuda", graphs=g) for g in (True, False)]
+    first, replayed, eager = steps[0](images8, state), steps[0](images8, state), steps[1](images8, state)
+    step_ms = [float(np.median([timed(lambda: st(images8, state))[1] for _ in range(5)])) for st in steps]
+    n_extract += 3 + 10
+    same = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(replayed, eager, first))
+    log(f"[graphs] make_multistream_step S={N_STREAMS}: replay equal to eager and to the first (eager) call "
+        f"to the bit: {same}; step ms graphs {step_ms[0]:.2f}, eager {step_ms[1]:.2f}; programs "
+        f"{mb(steps[0].programs())}")
+    checks["S=8 batched step: replay equal to eager to the bit"] = same
+
+    launches = dict(k.launch_counts)
+    log(f"[graphs] launches {launches} over {n_extract} extractions")
+    for name in ("fast_nms", "gather_patches"):
+        checks[f"{name} launched once per extraction, counted through replays"] = launches[name] == n_extract
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"graphs checks failed: {failed}")
+    return launches, n_extract
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="", help="comma-separated later phases to run after the build "
-                    "and the spiral (threaded, pipelined, bow, solvers, reloc, loop, multistream, "
+                    "and the spiral (graphs, threaded, pipelined, bow, solvers, reloc, loop, multistream, "
                     "multisystem, cli, viewer, sharded); default all")
     only = [name for name in ap.parse_args().only.split(",") if name]
     if not torch.cuda.is_available():
@@ -1964,8 +2229,8 @@ def main() -> int:
     phase_ba()
     spiral_launches, spiral_poses, spiral = phase_slam(seq, cfg)
     paths = {"spiral": (spiral_launches, N_FRAMES)}
-    # no CUDA graph is captured from here on, while other threads may run
-    for name, phase in (("threaded", lambda: phase_concurrent(seq, cfg, spiral, pipelined=False)),
+    for name, phase in (("graphs", lambda: phase_graphs(seq, cfg)),
+                        ("threaded", lambda: phase_concurrent(seq, cfg, spiral, pipelined=False)),
                         ("pipelined", lambda: phase_concurrent(seq, cfg, spiral, pipelined=True)),
                         ("bow", lambda: phase_bow(seq, cfg)), ("solvers", phase_solvers),
                         ("reloc", phase_reloc), ("loop", phase_loop),

@@ -84,7 +84,7 @@ def test_fused_step_parity(jax_state):
     step = FusedStep(config_from_reference(cfg), device="cpu")
     out_t = step(cur.xy, cur.octave, cur.angle, cur.desc, cur.valid,
                  T(last_oct), T(last_angle), T(last_desc), T(last_pos), T(last_ok),
-                 T(last_local_row), T(R_pred), T(t_pred), *lblock_t, T(bounds), float(th_local))
+                 T(last_local_row), T(R_pred), T(t_pred), *lblock_t, T(bounds), torch.tensor(float(th_local)))
 
     for name in ("m1_idx", "m1_valid", "inl1", "n1_matches", "n1_inliers", "m2_idx",
                  "m2_valid", "visible", "assoc", "inl2", "n2_inliers", "ok_next",

@@ -223,7 +223,7 @@ def test_fused_step_and_pack_control_batched(rng):
     alone: every index, mask and count equal, und and the bound points
     equal, R within 1e-5 and t within 1e-4; the packed control buffers carry
     the same bits past their float header. Stream 1 searches with the
-    widened radius (th_local 5, a tensor in the batch and a number alone);
+    widened radius (th_local 5, an (S,) tensor in the batch and a 0-d one alone);
     stream 2 has no bound last-frame point and an empty local map."""
     from ceres_mono_orb_slam2_tpu_torch.utils.config import (
         CameraConfig, ORBConfig, SlamConfig as TConfig)
@@ -235,7 +235,7 @@ def test_fused_step_and_pack_control_batched(rng):
     ins[2]["last"] = ins[2]["last"][:4] + (torch.zeros_like(ins[2]["last"][4]),) + ins[2]["last"][5:]
     ins[2]["loc"] = ins[2]["loc"][:5] + (torch.zeros_like(ins[2]["loc"][5]),)
     th = [1.0, 5.0, 1.0]
-    alone = [step(*i["cur"], *i["last"], *i["pred"], *i["loc"], BOUNDS, th[s])
+    alone = [step(*i["cur"], *i["last"], *i["pred"], *i["loc"], BOUNDS, torch.tensor(th[s]))
              for s, i in enumerate(ins)]
     stack = lambda key: tuple(torch.stack([i[key][k] for i in ins])  # noqa: E731
                               for k in range(len(ins[0][key])))

@@ -180,7 +180,8 @@ def test_grab_fused_is_finish_of_prepare(sequences):
     args, aux = b.tracker._fused_prepare(image, seq.timestamps[k])
     for i in (4, 5, 6, 7, 8, 10):  # last_pos, last_ok, last_local_row, R_pred, t_pred, slots
         assert isinstance(args[i], np.ndarray), i
-    assert isinstance(args[9], float) and isinstance(args[1], torch.Tensor)
+    assert isinstance(args[9], np.ndarray) and args[9].shape == () and args[9].dtype == np.float32
+    assert isinstance(args[1], torch.Tensor)
     b.tracker._fused_finish(args, aux)
     assert len(captured[0]) == len(captured[1]) == 1
     np.testing.assert_array_equal(captured[0][0], captured[1][0])

@@ -13,7 +13,9 @@ host copies of `Frame` / `KeyFrame` under two threads.
 - A reset from another thread while a fused frame is in its device phase
   makes the frame be tracked again against the emptied map.
 - `run_global_ba` on a thread of its own stops between chunks when its
-  `stop_cb` says so and then leaves the map as it was."""
+  `stop_cb` says so and then leaves the map as it was.
+- A frame that wanted a keyframe the busy mapper could not take makes the
+  next frame wait for the mapper."""
 
 import sys
 import threading
@@ -298,6 +300,48 @@ def test_flushed_keyframe_wakes_the_mapper(monkeypatch):
     assert slam.wait_mapper_idle(timeout=TIMEOUT_S)
     assert passes == [[7]]
     slam.shutdown()
+
+
+def test_a_wanted_keyframe_waits_for_a_slow_mapper(monkeypatch):
+    """Unpaced, threaded, with a mapper slowed to 0.6 s a keyframe (a
+    tracker that outruns it, as the card's replayed frames do): a frame that
+    wants a keyframe the busy mapper cannot take makes the next frame wait
+    for the mapper (`MonoSLAM.n_keyframe_waits`) instead of dropping it
+    again, so the map keeps up and tracking stays OK."""
+    n_frames = 12
+    cfg = _config(600)
+    Rcw, tcw = make_geo_trajectory(n_frames, "strafe", 0.12)
+    world = GeoWorld(np.random.default_rng(0), 2500, extent=10.0)
+    slam = MonoSLAM(cfg, device="cpu", threaded=True)
+    slam.tracker.extractor = GeoExtractor(world, cfg.camera.K, Rcw, tcw, 600, H, W,
+                                          px_noise=0.3, bit_noise=2, seed=5, device="cpu")
+    process, waits = slam.local_mapper._process, []
+
+    def slow_process(kf):
+        threading.Event().wait(0.6)
+        return process(kf)
+
+    wait = slam.wait_mapper_idle
+
+    def counted_wait(timeout=30.0):
+        waits.append(slam.tracker.keyframe_wanted)
+        return wait(timeout)
+
+    monkeypatch.setattr(slam.local_mapper, "_process", slow_process)
+    monkeypatch.setattr(slam, "wait_mapper_idle", counted_wait)
+    gt_c = np.einsum("tij,tj->ti", Rcw.transpose(0, 2, 1), -tcw)
+    est, gt = [], []
+    for k in range(n_frames):
+        T = slam.track_monocular(frame_image(k, H, W), k / 30.0)
+        if T is not None:
+            est.append(-T[:3, :3].T @ T[:3, 3])
+            gt.append(gt_c[k])
+    slam.shutdown()
+    # every wait came from a wanted keyframe, whose flag it cleared first
+    assert slam.n_keyframe_waits == len(waits) >= 1 and not any(waits)
+    assert slam.get_tracking_state() == "OK" and slam.map.n_keyframes() >= 3  # the serial run's 3
+    traj = np.linalg.norm(np.diff(np.stack(gt), axis=0), axis=1).sum()
+    assert ate_rmse(np.stack(est), np.stack(gt)) < 0.05 * traj
 
 
 def _lazy_frame(seed: int, n: int = 256) -> Frame:

@@ -1,0 +1,127 @@
+"""Keyframe decisions of the threaded MonoSLAM at full rate, on one GPU.
+
+    python tools/diag_threaded_keyframes.py [--frames 32] [--runs serial,threaded,eager,paced]
+                                            [--no-wait] [--sample]
+
+Renders the spiral ring world at 1241x376 (chip_smoke.py's sequence, 2000
+features) and runs its first `--frames` frames through the MonoSLAM of each
+run: `serial`, `threaded` (graphs, fed at full rate), `eager` (threaded,
+graphs=False, full rate) and `paced` (threaded, graphs, `wait_mapper_idle`
+after each frame). For each run it prints the ATE of the tracked centres,
+the keyframes, the mapper's passes and seconds, the median and p95 frame
+ms, the frames that waited for the mapper first
+(`MonoSLAM.n_keyframe_waits`), and per keyframe decision (frame, keyframes,
+inliers, the reference keyframe's tracked points, mapper idle, queued
+keyframes, new keyframe); then each frame's method, inliers and ms, and
+each mapping pass's stage ms. `--no-wait` turns off the facade's wait for
+the mapper after a wanted keyframe (the reference's behaviour: the keyframe
+is dropped); `--sample` prints per-thread stack samples of the threaded
+runs (tools/prof_torch_slam.py's ThreadSampler). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from ceres_mono_orb_slam2_tpu_torch.models import tracking  # noqa: E402
+from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM  # noqa: E402
+from ceres_mono_orb_slam2_tpu_torch.utils.config import (  # noqa: E402
+    CameraConfig, ORBConfig, SlamConfig, StaticShapes)
+from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse, make_rendered_sequence  # noqa: E402
+from prof_torch_slam import ThreadSampler  # noqa: E402
+
+H, W = 376, 1241
+
+
+def _logged_decision(need):
+    """`Tracking._need_new_keyframe` that appends its inputs and result to
+    `tracker.decisions`."""
+    def decide(self):
+        m = self.map
+        n_kfs = m.n_keyframes()
+        ref_kf = m.keyframes.get(self.ref_kf_id)
+        ref_matches = ref_kf.tracked_map_points(3 if n_kfs > 2 else 2, m) if ref_kf else 0
+        idle = self.local_mapper.accepting() if self.local_mapper else True
+        new = need(self)
+        self.decisions.append((self.current.id, n_kfs, self.matches_inliers, ref_matches, idle,
+                               len(self.local_mapper.queue), new))
+        return new
+
+    return decide
+
+
+def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool):
+    threaded = name != "serial"
+    slam = MonoSLAM(cfg, device="cuda", threaded=threaded, graphs=name != "eager")
+    slam.tracker.decisions = []
+    if no_wait:
+        slam._wait_for_wanted_keyframe = lambda: None
+    sampler = ThreadSampler(0.002) if sample and threaded else None
+    poses, frame_ms = [], []
+    t0 = time.perf_counter()
+    if sampler:
+        sampler.__enter__()
+    for i in range(n):
+        t = time.perf_counter()
+        poses.append(slam.track_monocular(seq.images[i], float(seq.timestamps[i])))
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        if name == "paced":
+            slam.wait_mapper_idle(timeout=600.0)
+    if sampler:
+        sampler.__exit__(None, None, None)
+    slam.shutdown()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    idx = [i for i, T in enumerate(poses) if T is not None]
+    est = np.asarray([-T[:3, :3].T @ T[:3, 3] for T in poses if T is not None])
+    gt = seq.gt_centers()[idx]
+    ate = 100.0 * ate_rmse(est, gt) / float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    lm = slam.local_mapper
+    mapper_s = sum(sum(v for k, v in p.items() if k != "kf") for p in lm.pass_ms) / 1e3
+    print(f"{name}: ATE {ate!r} %, sum of centres {float(est.sum())!r}, keyframes {slam.map.n_keyframes()}, "
+          f"passes {len(lm.pass_ms)}, mapper {mapper_s:.2f} s, wall {wall:.2f} s, frame ms (10+) median "
+          f"{np.median(frame_ms[10:]):.1f}, p95 {np.percentile(frame_ms[10:], 95):.1f}, keyframe waits "
+          f"{slam.n_keyframe_waits}", flush=True)
+    print("  decisions (frame, keyframes, inliers, reference tracked points, mapper idle, queued, new):",
+          slam.tracker.decisions)
+    print("  frames (id, method, inliers, ms):", [(st["frame_id"], st["method"], st.get("inliers_local"),
+                                                   round(st["track_ms"])) for st in slam.tracker.frame_stats])
+    print("  passes (stage ms):", [{k: round(v) for k, v in p.items()} for p in lm.pass_ms])
+    if sampler:
+        print(sampler.report(top=30)[:12000])
+    return ate
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=32)
+    ap.add_argument("--runs", default="serial,threaded,eager,paced")
+    ap.add_argument("--no-wait", action="store_true",
+                    help="drop a keyframe the busy mapper cannot take, as the reference does")
+    ap.add_argument("--sample", action="store_true", help="per-thread stack samples of threaded runs")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("diag_threaded_keyframes: no CUDA device", file=sys.stderr)
+        return 1
+    cfg = SlamConfig(camera=CameraConfig(fx=500.0, fy=500.0, cx=W / 2.0, cy=H / 2.0, fps=30.0),
+                     orb=ORBConfig(n_features=2000), shapes=StaticShapes(max_local_points=4096))
+    seq = make_rendered_sequence(args.frames, H, W, 500.0, 500.0, motion="spiral", step=0.06, seed=11,
+                                 device="cuda")
+    tracking.Tracking._need_new_keyframe = _logged_decision(tracking.Tracking._need_new_keyframe)
+    print(torch.cuda.get_device_name(0), flush=True)
+    for name in args.runs.split(","):
+        run(name, seq, cfg, args.frames, args.no_wait, args.sample)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,11 +2,18 @@
 
     python tools/prof_torch_slam.py [--frames 30] [--warmup 15] [--prof-frames 4]
                                     [--out prof_out] [--vocab] [--streams S]
-                                    [--threaded] [--pipelined]
+                                    [--threaded] [--pipelined] [--graphs both|on|off]
 
 Renders the spiral ring world at 1241x376 (the chip_smoke.py sequence) and
-runs the serial MonoSLAM on the GPU three times, measuring the frames after
-`--warmup` in each:
+runs the serial MonoSLAM on the GPU, measuring the frames after `--warmup`.
+With `--graphs both` (the default) passes 1 and 2 run once with the
+tracker's captured programs replayed (`graphs=True`) and once op by op
+(`graphs=False`); `on` / `off` runs one of the two (the multi-stream and
+threaded modes take `off` as graphs=False, anything else as True). Every
+profiler pass also counts the host's API calls a frame: kernel launches
+(`cudaLaunchKernel` and kin), graph launches (`cudaGraphLaunch`, one per
+replay) and copies (`cudaMemcpyAsync`), beside the device's launches. The
+passes:
   1. host wall time per frame, split into tracking (grab_image) and local
      mapping (process_queue), each ending in torch.cuda.synchronize();
   2. torch.profiler over the first `--prof-frames` of them (the profiler
@@ -108,6 +115,20 @@ STREAM_VARIANTS = [(11, 0.06), (11, 0.05), (11, 0.055), (11, 0.065), (11, 0.07),
                    (13, 0.06), (11, 0.0525)]  # (seed, step) of each stream's spiral
 
 
+def _api_calls(prof) -> dict:
+    """Host API calls in a torch.profiler run: kernel launches, graph
+    launches (replays) and copies."""
+    names = Counter(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.name.startswith("cu"))
+    return {"kernel_launches": sum(n for k, n in names.items() if "Launch" in k and "Graph" not in k),
+            "graph_launches": sum(n for k, n in names.items() if "GraphLaunch" in k),
+            "copies": sum(n for k, n in names.items() if "Memcpy" in k)}
+
+
+def _per_frame(calls: dict, n: int) -> dict:
+    return {k: v / n for k, v in calls.items()}
+
+
 def _smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
@@ -130,7 +151,7 @@ def profile_streams(args, h: int, w: int) -> int:
         return (time.perf_counter() - t0) * 1e3
 
     def fresh():
-        system = MultiStreamSLAM(_config(h, w), n_streams=S, device="cuda")
+        system = MultiStreamSLAM(_config(h, w), n_streams=S, device="cuda", graphs=args.graphs != "off")
         for i in range(args.warmup):
             batch_frame(system, i)
         system.phase_s.update(prepare=0.0, dispatch=0.0, fetch=0.0, consume=0.0, frames=0)
@@ -157,8 +178,10 @@ def profile_streams(args, h: int, w: int) -> int:
     orb_launches = {k: v / len(pw) for k, v in kernels.launch_counts.items()}
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    api = _per_frame(_api_calls(prof), len(pw))
     print(f"pass 2: {len(dev_events) / len(pw):.0f} launches/batch frame, device "
-          f"{dev_ms / len(pw):.2f} ms of {prof_wall_ms / len(pw):.2f} ms profiled", flush=True)
+          f"{dev_ms / len(pw):.2f} ms of {prof_wall_ms / len(pw):.2f} ms profiled; host API calls "
+          f"per batch frame {api}", flush=True)
     evs = prof.key_averages()
     dev_key = ("self_device_time_total" if hasattr(evs[0], "self_device_time_total")
                else "self_cuda_time_total")
@@ -189,6 +212,7 @@ def profile_streams(args, h: int, w: int) -> int:
         "profiled_wall_ms_per_batch_frame": prof_wall_ms / len(pw),
         "device_kernel_ms_per_batch_frame": dev_ms / len(pw),
         "kernel_launches_per_batch_frame": len(dev_events) / len(pw),
+        "host_api_calls_per_batch_frame": api, "graphs": args.graphs != "off",
         "orb_kernel_launches_per_batch_frame": orb_launches,
         "device_busy_share_under_profiler": dev_ms / prof_wall_ms,
     }
@@ -257,7 +281,7 @@ def profile_concurrent(args, seq, voc, h: int, w: int) -> int:
 
     def fresh():
         slam = MonoSLAM(_config(h, w), vocabulary=voc, device="cuda", threaded=args.threaded,
-                        pipelined=args.pipelined)
+                        pipelined=args.pipelined, graphs=args.graphs != "off")
         for i in range(args.warmup):
             slam.track_monocular(seq.images[i], float(seq.timestamps[i]))
         slam.wait_mapper_idle(timeout=600.0)
@@ -312,8 +336,10 @@ def profile_concurrent(args, seq, voc, h: int, w: int) -> int:
     slam.shutdown()
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    api = _per_frame(_api_calls(prof), len(pw))
     print(f"pass 3: {len(dev_events) / len(pw):.0f} launches/frame, device {dev_ms / len(pw):.2f} "
-          f"ms/frame of {prof_wall_ms / len(pw):.2f} ms profiled", flush=True)
+          f"ms/frame of {prof_wall_ms / len(pw):.2f} ms profiled; host API calls per frame {api}",
+          flush=True)
     evs = prof.key_averages()
     dev_key = ("self_device_time_total" if hasattr(evs[0], "self_device_time_total")
                else "self_cuda_time_total")
@@ -334,6 +360,7 @@ def profile_concurrent(args, seq, voc, h: int, w: int) -> int:
         "profiled_wall_ms_per_frame": prof_wall_ms / len(pw),
         "device_kernel_ms_per_frame": dev_ms / len(pw),
         "kernel_launches_per_frame": len(dev_events) / len(pw),
+        "host_api_calls_per_frame": api, "graphs": args.graphs != "off",
         "orb_kernel_launches_per_frame": orb_launches,
         "device_busy_share_under_profiler": dev_ms / prof_wall_ms,
         "thread_samples": dict(sampler.samples),
@@ -360,6 +387,9 @@ def main() -> int:
                     help="MonoSLAM(threaded=True): local mapping and loop closing on the mapper thread")
     ap.add_argument("--pipelined", action="store_true",
                     help="MonoSLAM(pipelined=True): frame k dispatched before frame k-1 is consumed")
+    ap.add_argument("--graphs", choices=("both", "on", "off"), default="both",
+                    help="replay the captured programs (on), run op by op (off), or the serial "
+                         "passes 1 and 2 both ways (both)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("prof_torch_slam: no CUDA device", file=sys.stderr)
@@ -375,58 +405,82 @@ def main() -> int:
     if args.threaded or args.pipelined:
         return profile_concurrent(args, seq, voc, h, w)
 
-    def fresh():
-        slam = MonoSLAM(_config(h, w), vocabulary=voc, device="cuda")
+    def fresh(graphs):
+        slam = MonoSLAM(_config(h, w), vocabulary=voc, device="cuda", graphs=graphs)
         for i in range(args.warmup):
             _frame(slam, seq, i)
         return slam
 
     n = len(window)
-    # pass 1: wall-clock split, no profiler attached
-    slam = fresh()
-    split = np.asarray([_frame(slam, seq, i) for i in window])
-    print(f"pass 1: frame ms median {np.median(split.sum(1)):.2f} (tracking "
-          f"{np.median(split[:, 0]):.2f}, mapping {np.median(split[:, 1]):.2f}, loop closing mean "
-          f"{split[:, 2].mean():.2f})", flush=True)
-    loop_counters = None if slam.loop_closer is None else {
-        "n_detects": slam.loop_closer.n_detects,
-        "n_candidate_events": slam.loop_closer.n_candidate_events,
-        "n_loops_closed": slam.loop_closer.n_loops_closed,
-        "words_indexed": len(slam.keyframe_db.inverted)}
+    modes = {"both": (True, False), "on": (True,), "off": (False,)}[args.graphs]
+    by_mode = {}
+    for graphs in modes:
+        mode = "graphs" if graphs else "eager"
+        # pass 1: wall-clock split, no profiler attached
+        slam = fresh(graphs)
+        split = np.asarray([_frame(slam, seq, i) for i in window])
+        print(f"pass 1 ({mode}): frame ms median {np.median(split.sum(1)):.2f} (tracking "
+              f"{np.median(split[:, 0]):.2f}, mapping {np.median(split[:, 1]):.2f}, loop closing mean "
+              f"{split[:, 2].mean():.2f})", flush=True)
+        loop_counters = None if slam.loop_closer is None else {
+            "n_detects": slam.loop_closer.n_detects,
+            "n_candidate_events": slam.loop_closer.n_candidate_events,
+            "n_loops_closed": slam.loop_closer.n_loops_closed,
+            "words_indexed": len(slam.keyframe_db.inverted)}
 
-    # pass 2: torch.profiler over the start of the same window, fresh run
-    slam = fresh()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    pw = window[:args.prof_frames]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        for i in pw:
-            _frame(slam, seq, i)
-    prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
-    print(f"pass 2: {len(dev_events) / len(pw):.0f} launches/frame, device "
-          f"{dev_ms / len(pw):.2f} ms/frame of {prof_wall_ms / len(pw):.2f} ms profiled", flush=True)
-    # the extractor alone over the same frames
-    kernels.reset_launch_counts()
-    with torch.profiler.profile(activities=acts) as xprof:
-        for i in pw:
-            slam.extractor.extract(seq.images[i])
-        torch.cuda.synchronize()
-    x_launches = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in xprof.events())
-    orb_launches = {k: v / len(pw) for k, v in kernels.launch_counts.items()}
-    print(f"pass 2: extractor {x_launches / len(pw):.0f} device launches/frame, of which "
-          f"hand-written kernels {orb_launches}", flush=True)
-    evs = prof.key_averages()
-    dev_key = ("self_device_time_total" if hasattr(evs[0], "self_device_time_total")
-               else "self_cuda_time_total")
-    with open(os.path.join(args.out, "ops.txt"), "w") as f:
-        f.write(evs.table(sort_by=dev_key, row_limit=30))
-        f.write("\n")
-        f.write(evs.table(sort_by="self_cpu_time_total", row_limit=30))
+        # pass 2: torch.profiler over the start of the same window, fresh run
+        slam = fresh(graphs)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        pw = window[:args.prof_frames]
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            for i in pw:
+                _frame(slam, seq, i)
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+        api = _per_frame(_api_calls(prof), len(pw))
+        print(f"pass 2 ({mode}): {len(dev_events) / len(pw):.0f} launches/frame, device "
+              f"{dev_ms / len(pw):.2f} ms/frame of {prof_wall_ms / len(pw):.2f} ms profiled; host API "
+              f"calls per frame {api}", flush=True)
+        # the extractor alone over the same frames
+        kernels.reset_launch_counts()
+        with torch.profiler.profile(activities=acts) as xprof:
+            for i in pw:
+                slam.extractor.extract(seq.images[i])
+            torch.cuda.synchronize()
+        x_launches = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in xprof.events())
+        orb_launches = {k: v / len(pw) for k, v in kernels.launch_counts.items()}
+        print(f"pass 2 ({mode}): extractor {x_launches / len(pw):.0f} device launches/frame, of which "
+              f"hand-written kernels {orb_launches}", flush=True)
+        if not by_mode:
+            evs = prof.key_averages()
+            dev_key = ("self_device_time_total" if hasattr(evs[0], "self_device_time_total")
+                       else "self_cuda_time_total")
+            with open(os.path.join(args.out, "ops.txt"), "w") as f:
+                f.write(evs.table(sort_by=dev_key, row_limit=30))
+                f.write("\n")
+                f.write(evs.table(sort_by="self_cpu_time_total", row_limit=30))
+        by_mode[mode] = {
+            "frame_ms_median": float(np.median(split.sum(1))),
+            "tracking_ms_median": float(np.median(split[:, 0])),
+            "mapping_ms_median": float(np.median(split[:, 1])),
+            "mapping_ms_mean": float(split[:, 1].mean()),
+            "loop_closing_ms_mean": float(split[:, 2].mean()),
+            "loop_closing_ms_max": float(split[:, 2].max()),
+            "loop_closer": loop_counters,
+            "profiled_wall_ms_per_frame": prof_wall_ms / len(pw),
+            "device_kernel_ms_per_frame": dev_ms / len(pw),
+            "kernel_launches_per_frame": len(dev_events) / len(pw),
+            "host_api_calls_per_frame": api,
+            "extractor_launches_per_frame": x_launches / len(pw),
+            "orb_kernel_launches_per_frame": orb_launches,
+            "device_busy_share_under_profiler": dev_ms / prof_wall_ms,
+            "programs": slam.tracker.programs(),
+        }
 
-    # pass 3: cProfile over the same window of a fresh run
-    slam = fresh()
+    # pass 3: cProfile over the same window of a fresh run of the first mode
+    slam = fresh(modes[0])
     pr = cProfile.Profile()
     pr.enable()
     for i in window:
@@ -441,21 +495,10 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": _smi(),
         "frames_profiled": n,
-        "frame_ms_median": float(np.median(split.sum(1))),
-        "tracking_ms_median": float(np.median(split[:, 0])),
-        "mapping_ms_median": float(np.median(split[:, 1])),
-        "mapping_ms_mean": float(split[:, 1].mean()),
+        "frames_under_torch_profiler": len(window[:args.prof_frames]),
         "vocabulary_words": None if voc is None else voc.n_words,
-        "loop_closing_ms_mean": float(split[:, 2].mean()),
-        "loop_closing_ms_max": float(split[:, 2].max()),
-        "loop_closer": loop_counters,
-        "frames_under_torch_profiler": len(pw),
-        "profiled_wall_ms_per_frame": prof_wall_ms / len(pw),
-        "device_kernel_ms_per_frame": dev_ms / len(pw),
-        "kernel_launches_per_frame": len(dev_events) / len(pw),
-        "extractor_launches_per_frame": x_launches / len(pw),
-        "orb_kernel_launches_per_frame": orb_launches,
-        "device_busy_share_under_profiler": dev_ms / prof_wall_ms,
+        "cprofile_mode": "graphs" if modes[0] else "eager",
+        **by_mode,
     }
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
