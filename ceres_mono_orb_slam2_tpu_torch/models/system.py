@@ -14,16 +14,18 @@ the loop closer. The facade also switches localization mode, and saves and
 loads trajectories and maps in the JAX package's formats (`save_map`'s
 `.npz` loads into either package). `use_viewer=True` writes a map snapshot
 every 10 frames (`viewer.py`); `live_viewer_port` serves the live HTTP
-viewer (`live_viewer.py`). The tracker replays its per-frame device work as
-captured programs (`graphs=True`, `utils/graphs.py`); `graphs=False` runs
-it op by op, as `jax.disable_jit` does the JAX package's.
+viewer (`live_viewer.py`). The tracker replays its per-frame device work,
+and local mapping and loop closing their device solves, as captured programs
+(`graphs=True`, `utils/graphs.py`); `graphs=False` runs them op by op, as
+`jax.disable_jit` does the JAX package's.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-from typing import Optional
+import time
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -62,9 +64,10 @@ class MonoSLAM:
             self.keyframe_db = KeyFrameDatabase(vocabulary, self.map, device=self.device)
             self.map.keyframe_db = self.keyframe_db
             self.loop_closer = LoopClosing(config, self.map, self.keyframe_db,
-                                           threaded_gba=threaded, device=self.device)
+                                           threaded_gba=threaded, device=self.device,
+                                           graphs=graphs)
         self.local_mapper = LocalMapping(config, self.map, loop_closer=self.loop_closer,
-                                         device=self.device)
+                                         device=self.device, graphs=graphs)
         self.tracker = Tracking(config, self.map, self.extractor, local_mapper=self.local_mapper,
                                 relocalizer=self.keyframe_db, device=self.device,
                                 generator=generator, pipelined=pipelined, graphs=graphs)
@@ -72,12 +75,17 @@ class MonoSLAM:
             self.loop_closer.local_mapper = self.local_mapper
         self._last_big_change = 0
         self.threaded = threaded
-        # frames that first waited for the mapper (`_wait_for_wanted_keyframe`)
+        # frames that first waited for local mapping (`_wait_for_wanted_keyframe`),
+        # the ms of each wait, and how long one may last before it raises
         self.n_keyframe_waits = 0
+        self.keyframe_wait_ms: List[float] = []
+        self.keyframe_wait_timeout_s = JOIN_TIMEOUT_S
         # the mapper thread's wake-ups: passes asked of it and not yet run,
-        # and the stop request, under one condition that also signals idle
+        # and the stop request, under one condition that also signals idle;
+        # `_lm_running` while the thread drains the local-mapping queue
         self._mapper_cv = threading.Condition()
         self._passes_asked = 0
+        self._lm_running = False
         self._shutdown = False
         self._worker_error: Optional[Exception] = None
         self._worker: Optional[threading.Thread] = None
@@ -116,7 +124,14 @@ class MonoSLAM:
                     return
                 served = self._passes_asked
             try:
-                self.local_mapper.process_queue()
+                with cv:
+                    self._lm_running = True
+                try:
+                    self.local_mapper.process_queue()
+                finally:
+                    with cv:
+                        self._lm_running = False
+                        cv.notify_all()
                 if self.loop_closer is not None:
                     self.loop_closer.process_queue()
             except Exception as e:  # the thread's boundary: hand it to the caller
@@ -154,6 +169,24 @@ class MonoSLAM:
         self._raise_worker_error()
         return idle
 
+    def wait_local_mapping_idle(self, timeout: float = 30.0) -> bool:
+        """Block until local mapping is idle: its queue empty and no drain of
+        it running on the mapper thread, which may still be closing a loop;
+        True at once when not threaded, False on timeout. Re-raises a
+        failure of the mapper thread."""
+        if not self.threaded:
+            return True
+        with self._mapper_cv:
+            idle = self._mapper_cv.wait_for(
+                lambda: self._worker_error is not None
+                or not (self._lm_running or self.local_mapper.queue), timeout)
+        self._raise_worker_error()
+        return idle
+
+    @property
+    def max_keyframe_wait_ms(self) -> float:
+        return max(self.keyframe_wait_ms, default=0.0)
+
     def track_monocular(self, image: np.ndarray, timestamp: float):
         """Reference TrackMonocular (MonoORBSlam.cc:103-141): returns Tcw
         (4, 4) numpy or None (pipelined: the pose of the frame before, one
@@ -167,17 +200,26 @@ class MonoSLAM:
         return Tcw
 
     def _wait_for_wanted_keyframe(self):
-        """Threaded: when the last frame wanted a keyframe that the busy
-        mapper could not take, wait for the mapper before tracking this
-        frame, so that this frame can make it. The reference drops such a
-        keyframe (a monocular tracker inserts only while local mapping is
-        idle); with the tracker replaying its frames as graphs it outruns
-        the mapper, which then falls behind by keyframe after keyframe
-        until the map no longer covers the view."""
+        """Threaded: when the last frame wanted a keyframe that busy local
+        mapping could not take, wait until local mapping is idle before
+        tracking this frame, so that this frame can make it. The reference
+        drops such a keyframe (a monocular tracker inserts only while local
+        mapping is idle); with the tracker replaying its frames as graphs it
+        outran the mapper, which then fell behind by keyframe after keyframe
+        until the map no longer covered the view. The wait ends at local
+        mapping's idle, not at the end of the mapper thread's pass: a loop
+        closure that follows runs on, and a keyframe made meanwhile queues
+        behind it, as with the reference's own loop-closing thread. A wait
+        longer than `keyframe_wait_timeout_s` raises."""
         if self.threaded and self.tracker.keyframe_wanted:
             self.tracker.keyframe_wanted = False
             self.n_keyframe_waits += 1
-            self.wait_mapper_idle(timeout=JOIN_TIMEOUT_S)
+            t0 = time.perf_counter()
+            idle = self.wait_local_mapping_idle(timeout=self.keyframe_wait_timeout_s)
+            self.keyframe_wait_ms.append((time.perf_counter() - t0) * 1e3)
+            if not idle:
+                raise RuntimeError(f"a wanted keyframe waited {self.keyframe_wait_timeout_s} s for "
+                                   "local mapping to go idle")
 
     def _map_after_frame(self):
         """Local mapping and loop closing after a tracked frame: handed to

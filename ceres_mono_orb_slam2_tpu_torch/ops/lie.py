@@ -274,7 +274,9 @@ def sim3_log(R: torch.Tensor, t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """(R, t, s) -> (..., 7)."""
     w = so3_log(R)
     sigma = torch.log(s)
-    v = torch.linalg.solve(_sim3_W(w, sigma), t[..., None])[..., 0]
+    # solve_ex: the bits of solve without its host check of `info` (which
+    # synchronises and cannot be captured)
+    v = torch.linalg.solve_ex(_sim3_W(w, sigma), t[..., None])[0][..., 0]
     return torch.cat([v, w, sigma[..., None]], dim=-1)
 
 

@@ -234,27 +234,32 @@ def search_for_triangulation(xy1, octave1, angle1, bits1, valid1,
     """Epipolar search for new map points: unassociated keypoints of two
     keyframes under the gate dist^2 < 3.84*sigma2(octave2), an
     epipole-proximity rejection, and a mutual best-match cross-check (the
-    stand-in for the reference's shared-vocabulary-node pruning)."""
-    mask = valid1[:, None] & valid2[None, :]
-    x1h = torch.cat([xy1, torch.ones_like(xy1[:, :1])], dim=-1)
-    l2 = x1h @ F12  # (N1, 3) epipolar lines [a, b, c] in image 2
-    num = l2[:, 0:1] * xy2[None, :, 0] + l2[:, 1:2] * xy2[None, :, 1] + l2[:, 2:3]
-    den = l2[:, 0:1] ** 2 + l2[:, 1:2] ** 2
+    stand-in for the reference's shared-vocabulary-node pruning).
+
+    Keyframe 2's arguments, F12 (..., 3, 3) and epipole2 (..., 2) may carry
+    leading axes (none, or one entry per neighbour keyframe), against which
+    keyframe 1's (N1, ...) broadcast; the results carry them too."""
+    mask = valid1[..., :, None] & valid2[..., None, :]
+    x1h = torch.cat([xy1, torch.ones_like(xy1[..., :1])], dim=-1)
+    l2 = x1h @ F12  # (..., N1, 3) epipolar lines [a, b, c] in image 2
+    num = (l2[..., 0:1] * xy2[..., None, :, 0] + l2[..., 1:2] * xy2[..., None, :, 1]
+           + l2[..., 2:3])
+    den = l2[..., 0:1] ** 2 + l2[..., 1:2] ** 2
     dsqr = num * num / den.clamp_min(1e-12)
-    epi_ok = dsqr < 3.84 * level_sigma2[octave2][None, :]
-    de = ((xy2 - epipole2[None, :]) ** 2).sum(-1)
+    epi_ok = dsqr < 3.84 * level_sigma2[octave2][..., None, :]
+    de = ((xy2 - epipole2[..., None, :]) ** 2).sum(-1)
     far_from_epipole = de >= 100.0 * scale_factors[octave2] ** 2
-    mask = mask & epi_ok & far_from_epipole[None, :]
+    mask = mask & epi_ok & far_from_epipole[..., None, :]
 
     dist = hamming_matrix(bits1, bits2)
     best_val, best_idx, _, _ = masked_top2(dist, mask)
     d2 = torch.where(mask, dist, torch.full_like(dist, BIG))
-    col_best = d2.argmin(0)  # best row of each column
-    mutual = col_best[best_idx] == torch.arange(best_idx.shape[0], device=best_idx.device)
+    col_best = d2.argmin(-2)  # best row of each column
+    mutual = col_best.gather(-1, best_idx) == torch.arange(best_idx.shape[-1], device=best_idx.device)
     valid = valid1 & (best_val <= TH_LOW) & mutual
     if check_rotation:
-        valid = rotation_consistency_mask(angle1, angle2[best_idx], valid)
-    valid = resolve_duplicate_targets(best_idx, best_val, valid, xy2.shape[0])
+        valid = rotation_consistency_mask(angle1, angle2.gather(-1, best_idx), valid)
+    valid = resolve_duplicate_targets(best_idx, best_val, valid, xy2.shape[-2])
     return best_idx, best_val, valid
 
 
@@ -263,14 +268,18 @@ def search_fuse(kp_xy, kp_octave, kp_bits, kp_valid, pr_uv, pr_level, pr_bits,
                 inv_level_sigma2=None):
     """Fuse projection search: map points projected into a keyframe, radius
     th*scale(predicted level), level window [l-1, l], best descriptor under
-    dist_th; `inv_level_sigma2` enables the 5.99 chi2 gate of Fuse overload 1."""
+    dist_th; `inv_level_sigma2` enables the 5.99 chi2 gate of Fuse overload 1.
+    Keypoint arguments (..., N, ...) and projections (..., M, ...) may carry
+    leading axes (none, or one entry per target keyframe), against which the
+    points' descriptors pr_bits (M, 256) broadcast."""
     r = th * scale_factors[pr_level]
     du, dv, in_window = _window(pr_uv, kp_xy, r)
-    lvl_ok = (kp_octave[None, :] >= pr_level[:, None] - 1) & (kp_octave[None, :] <= pr_level[:, None])
-    mask = in_window & lvl_ok & kp_valid[None, :] & pr_valid[:, None]
+    kp_oct, lvl = kp_octave[..., None, :], pr_level[..., None]
+    lvl_ok = (kp_oct >= lvl - 1) & (kp_oct <= lvl)
+    mask = in_window & lvl_ok & kp_valid[..., None, :] & pr_valid[..., None]
     if inv_level_sigma2 is not None:
         e2 = du * du + dv * dv
-        mask = mask & (e2 * inv_level_sigma2[kp_octave][None, :] <= 5.99)
+        mask = mask & (e2 * inv_level_sigma2[kp_octave][..., None, :] <= 5.99)
     dist = hamming_matrix(pr_bits, kp_bits)
     best_val, best_idx, _, _ = masked_top2(dist, mask)
     valid = pr_valid & (best_val <= dist_th)

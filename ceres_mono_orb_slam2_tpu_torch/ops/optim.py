@@ -18,6 +18,7 @@ left-multiplicative se3 increments T <- exp(dx) * T.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -203,6 +204,14 @@ def group_sum(group):
     return allsum
 
 
+def segment_sum(index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Rows of `values` summed per segment through a `SegmentSum.index`
+    block: a gather into (n, width, ...) then a sum along the width, in an
+    order that depends only on the shapes."""
+    padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+    return padded[index].sum(1)
+
+
 class SegmentSum:
     """Deterministic segment sums over a fixed set of observations.
 
@@ -212,7 +221,8 @@ class SegmentSum:
     gathered, in observation order, into a zero-padded (n, width) block and
     summed along it, a reduction whose order depends only on the shapes.
     The index block is built once per problem; `width` is the largest
-    segment (one host read of it).
+    segment (one host read of it), so build it outside a captured program
+    and pass `index` in (`segment_sum`).
     """
 
     def __init__(self, keys: torch.Tensor, n_segments: int):
@@ -228,17 +238,16 @@ class SegmentSum:
         self.index[sorted_keys, rank] = order
 
     def __call__(self, values: torch.Tensor) -> torch.Tensor:
-        padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
-        return padded[self.index].sum(1)
+        return segment_sum(self.index, values)
 
 
-def assemble_normal_equations(by_pose: SegmentSum, by_point: SegmentSum, by_pair: SegmentSum,
-                              A, B, r, w, P: int, M: int):
+def assemble_normal_equations(by_pose, by_point, by_pair, A, B, r, w, P: int, M: int):
     """BA normal-equation blocks from per-observation Jacobians A (O, 2, 6)
     (pose), B (O, 2, 3) (point), residuals r (O, 2) and weights w (O,):
     Hpp (P, 6, 6), bp (P, 6), Hll (M, 3, 3), bl (M, 3) and the pose-point
     cross blocks U (M, P, 6, 3), summed per pose, per point and per
-    (point, pose) pair by the three `SegmentSum`s."""
+    (point, pose) pair by the three segment sums (`SegmentSum`s or
+    `segment_sum` over their index blocks)."""
     wA = w[:, None, None] * A
     wB = w[:, None, None] * B
     Hpp = by_pose(torch.einsum("oik,oil->okl", wA, A))
@@ -257,9 +266,131 @@ class BAResult(NamedTuple):
     cost: torch.Tensor
 
 
+class BAProblem(NamedTuple):
+    """What stays fixed through a dense-Schur bundle adjustment: the
+    observations, the gauge and the three segment-sum index blocks. Tensors
+    only, so that one LM iteration is a function of tensors (`lm_iteration_*`,
+    captured per shape by `utils/graphs.py`)."""
+    K: torch.Tensor  # (3, 3)
+    obs_pose: torch.Tensor  # (O,) int64
+    obs_point: torch.Tensor  # (O,) int64
+    obs_uv: torch.Tensor  # (O, 2)
+    obs_inv_sigma2: torch.Tensor  # (O,)
+    point_valid: torch.Tensor  # (M,) bool
+    free6: torch.Tensor  # (6P,) bool: the pose parameters that move
+    by_pose: torch.Tensor  # SegmentSum index blocks: per pose, per point,
+    by_point: torch.Tensor  # per (point, pose) pair
+    by_pair: torch.Tensor
+
+
+class LMState(NamedTuple):
+    """The carry of one LM pass (the JAX package's scan carry): poses,
+    points, damping, cost, and `done`, which freezes the rest once an
+    accepted step has converged."""
+    R: torch.Tensor
+    t: torch.Tensor
+    points: torch.Tensor
+    lam: torch.Tensor
+    cost: torch.Tensor
+    done: torch.Tensor
+
+
+def ba_problem(K, obs_pose, obs_point, obs_uv, obs_inv_sigma2, fixed_pose, point_valid) -> BAProblem:
+    """The `BAProblem` of P = len(fixed_pose) poses and M = len(point_valid)
+    points (three host reads: the segment widths)."""
+    P, M = fixed_pose.shape[0], point_valid.shape[0]
+    op, oj = obs_pose.long(), obs_point.long()
+    return BAProblem(K, op, oj, obs_uv, obs_inv_sigma2, point_valid,
+                     (~fixed_pose).repeat_interleave(6), SegmentSum(op, P).index,
+                     SegmentSum(oj, M).index, SegmentSum(oj * P + op, M * P).index)
+
+
+def _ba_chi2(prob: BAProblem, Rp, tp, pts):
+    op, oj = prob.obs_pose, prob.obs_point
+    Xc = (Rp[op] @ pts[oj][..., None])[..., 0] + tp[op]
+    r = prob.obs_uv - _project(prob.K, Xc)
+    s = prob.obs_inv_sigma2 * (r * r).sum(-1)
+    return torch.where(Xc[..., 2] <= 1e-6, torch.full_like(s, 1e6), s), r, Xc
+
+
+def _ba_cost(prob: BAProblem, Rp, tp, pts, mask, robust: bool, delta: float):
+    s, _, _ = _ba_chi2(prob, Rp, tp, pts)
+    c = huber_cost(s, delta) if robust else s
+    return torch.where(mask, c, torch.zeros_like(c)).sum()
+
+
+def _lm_iteration(state: LMState, mask, prob: BAProblem, robust: bool, delta: float) -> LMState:
+    """One LM iteration of `bundle_adjustment`'s dense Schur solve. A state
+    that is `done` stays as it is; an accepted step that lowers the cost by
+    at most 1e-6 of it (the Ceres function tolerance) sets `done`."""
+    Rp, tp, pts, lam, cost, done = state
+    P, M = Rp.shape[0], pts.shape[0]
+    dt = Rp.dtype
+    eye3 = torch.eye(3, dtype=dt, device=Rp.device)
+    eye6 = torch.eye(6, dtype=dt, device=Rp.device)
+    free6 = prob.free6
+    s, r, Xc = _ba_chi2(prob, Rp, tp, pts)
+    w = prob.obs_inv_sigma2 * (huber_weight(s, delta) if robust else 1.0)
+    w = torch.where(mask & (Xc[..., 2] > 1e-6), w, torch.zeros_like(w))
+    Jp = _proj_jacobian(prob.K, Xc)  # (O, 2, 3)
+    A = _pose_jacobian(Jp, Xc)  # (O, 2, 6)
+    B = -(Jp @ Rp[prob.obs_pose])  # (O, 2, 3): dr/dX = -Jp R
+    Hpp, bp, Hll, bl, U = assemble_normal_equations(
+        partial(segment_sum, prob.by_pose), partial(segment_sum, prob.by_point),
+        partial(segment_sum, prob.by_pair), A, B, r, w, P, M)
+    U3 = U.reshape(M, P * 6, 3)
+
+    Hll_d = Hll + lam * (Hll * eye3) + 1e-6 * eye3
+    Hpp_d = Hpp + lam * (Hpp * eye6) + 1e-6 * eye6
+    Hll_inv = torch.where(prob.point_valid[:, None, None], _inv3x3(Hll_d),
+                          torch.zeros_like(Hll_d))
+    T3 = torch.einsum("mak,mkl->mal", U3, Hll_inv)  # U Hll^-1
+    # Schur complement S = blockdiag(Hpp_d) - sum_m U_m Hll_m^-1 U_m^T
+    S = -torch.einsum("mak,mbk->ab", T3, U3)
+    S = S + torch.block_diag(*Hpp_d)
+    rhs = bp.reshape(P * 6) - torch.einsum("mak,mk->a", T3, bl)
+    # gauge: zero rows/cols of fixed poses, identity diagonal
+    S = torch.where(free6[:, None] & free6[None, :], S, torch.zeros_like(S))
+    S = S + torch.diag(torch.where(free6, 0.0, 1.0).to(dt))
+    rhs = torch.where(free6, rhs, torch.zeros_like(rhs))
+    L, info = torch.linalg.cholesky_ex(S)
+    dp = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+    # a failed factorisation rejects the step (NaN cost), as in XLA
+    dp = torch.where(info == 0, dp, torch.full_like(dp, float("nan"))).reshape(P, 6)
+
+    dl = torch.einsum("mkl,ml->mk", Hll_inv,
+                      bl - torch.einsum("mak,a->mk", U3, dp.reshape(P * 6)))
+    dl = torch.where(prob.point_valid[:, None], dl, torch.zeros_like(dl))
+    dRp, dtp = lie.se3_exp(dp)
+    R_new = dRp @ Rp
+    t_new = (dRp @ tp[..., None])[..., 0] + dtp
+    pts_new = pts + dl
+    new_cost = _ba_cost(prob, R_new, t_new, pts_new, mask, robust, delta)
+    accept = new_cost < cost
+    converged = accept & (cost - new_cost <= 1e-6 * cost)
+    take = accept & ~done
+    return LMState(R=torch.where(take, R_new, Rp), t=torch.where(take, t_new, tp),
+                   points=torch.where(take, pts_new, pts),
+                   lam=torch.where(done, lam, torch.where(accept, (lam * 0.33).clamp_min(1e-7),
+                                                          (lam * 5.0).clamp_max(1e6))),
+                   cost=torch.where(take, new_cost, cost), done=done | converged)
+
+
+def lm_iteration_robust(state: LMState, mask, prob: BAProblem) -> LMState:
+    """`bundle_adjustment`'s LM iteration of its Huber pass (tensors in and
+    out: the function `LocalMapping` captures per shape)."""
+    return _lm_iteration(state, mask, prob, True, math.sqrt(CHI2_MONO))
+
+
+def lm_iteration_trimmed(state: LMState, mask, prob: BAProblem) -> LMState:
+    """`bundle_adjustment`'s LM iteration of its trimmed quadratic pass."""
+    return _lm_iteration(state, mask, prob, False, math.sqrt(CHI2_MONO))
+
+
 def bundle_adjustment(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigma2,
                       obs_valid, fixed_pose, point_valid, iters_huber: int = 5,
-                      iters_trimmed: int = 10, chi2_th: float = CHI2_MONO) -> BAResult:
+                      iters_trimmed: int = 10, chi2_th: float = CHI2_MONO,
+                      robust_step=None, trimmed_step=None) -> BAResult:
     """Bundle adjustment with dense point-block Schur elimination
     (LocalBundleAdjustment's two passes): pass 1 Huber-robust, outliers
     (chi2 > 5.991) dropped, pass 2 trimmed quadratic. The normal equations,
@@ -268,95 +399,39 @@ def bundle_adjustment(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigm
     system is solved by Cholesky.
 
     iters_huber=0 with iters_trimmed>0 over all-valid observations is a plain
-    global BA. Each pass exits at the Ceres function-tolerance convergence
-    test (relative cost decrease <= 1e-6 on an accepted step).
+    global BA. Each pass runs its fixed count of LM iterations (the JAX
+    package's scan) and freezes its state at the Ceres function-tolerance
+    convergence test (relative cost decrease <= 1e-6 on an accepted step):
+    the bits of a pass that exits there, with no host read inside a solve.
+
+    `robust_step` / `trimmed_step` run one iteration of each pass
+    (`lm_iteration_robust` / `lm_iteration_trimmed` of `chi2_th`'s Huber
+    width by default; `LocalMapping` passes their captured programs).
     """
-    P = R.shape[0]
-    M = points.shape[0]
-    dev, dt = R.device, R.dtype
     delta = math.sqrt(chi2_th)
-    free6 = (~fixed_pose).repeat_interleave(6)
-    eye3 = torch.eye(3, dtype=dt, device=dev)
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    op = obs_pose.long()
-    oj = obs_point.long()
-    by_pose, by_point, by_pair = SegmentSum(op, P), SegmentSum(oj, M), SegmentSum(oj * P + op, M * P)
+    robust_step = robust_step or partial(_lm_iteration, robust=True, delta=delta)
+    trimmed_step = trimmed_step or partial(_lm_iteration, robust=False, delta=delta)
+    prob = ba_problem(K, obs_pose, obs_point, obs_uv, obs_inv_sigma2, fixed_pose, point_valid)
 
-    def chi2_of(Rp, tp, pts):
-        Xc = (Rp[op] @ pts[oj][..., None])[..., 0] + tp[op]
-        r = obs_uv - _project(K, Xc)
-        s = obs_inv_sigma2 * (r * r).sum(-1)
-        return torch.where(Xc[..., 2] <= 1e-6, torch.full_like(s, 1e6), s), r, Xc
-
-    def total_cost(Rp, tp, pts, mask, robust):
-        s, _, _ = chi2_of(Rp, tp, pts)
-        c = huber_cost(s, delta) if robust else s
-        return torch.where(mask, c, torch.zeros_like(c)).sum()
-
-    def lm_iteration(Rp, tp, pts, lam, cost, mask, robust):
-        s, r, Xc = chi2_of(Rp, tp, pts)
-        w = obs_inv_sigma2 * (huber_weight(s, delta) if robust else 1.0)
-        w = torch.where(mask & (Xc[..., 2] > 1e-6), w, torch.zeros_like(w))
-        Jp = _proj_jacobian(K, Xc)  # (O, 2, 3)
-        A = _pose_jacobian(Jp, Xc)  # (O, 2, 6)
-        B = -(Jp @ Rp[op])  # (O, 2, 3): dr/dX = -Jp R
-        Hpp, bp, Hll, bl, U = assemble_normal_equations(by_pose, by_point, by_pair, A, B, r, w, P, M)
-        U3 = U.reshape(M, P * 6, 3)
-
-        Hll_d = Hll + lam * (Hll * eye3) + 1e-6 * eye3
-        Hpp_d = Hpp + lam * (Hpp * eye6) + 1e-6 * eye6
-        Hll_inv = torch.where(point_valid[:, None, None], _inv3x3(Hll_d),
-                              torch.zeros_like(Hll_d))
-        T3 = torch.einsum("mak,mkl->mal", U3, Hll_inv)  # U Hll^-1
-        # Schur complement S = blockdiag(Hpp_d) - sum_m U_m Hll_m^-1 U_m^T
-        S = -torch.einsum("mak,mbk->ab", T3, U3)
-        S = S + torch.block_diag(*Hpp_d)
-        rhs = bp.reshape(P * 6) - torch.einsum("mak,mk->a", T3, bl)
-        # gauge: zero rows/cols of fixed poses, identity diagonal
-        S = torch.where(free6[:, None] & free6[None, :], S, torch.zeros_like(S))
-        S = S + torch.diag(torch.where(free6, 0.0, 1.0).to(dt))
-        rhs = torch.where(free6, rhs, torch.zeros_like(rhs))
-        L, info = torch.linalg.cholesky_ex(S)
-        dp = torch.cholesky_solve(rhs[:, None], L)[:, 0]
-        # a failed factorisation rejects the step (NaN cost), as in XLA
-        dp = torch.where(info == 0, dp, torch.full_like(dp, float("nan"))).reshape(P, 6)
-
-        dl = torch.einsum("mkl,ml->mk", Hll_inv,
-                          bl - torch.einsum("mak,a->mk", U3, dp.reshape(P * 6)))
-        dl = torch.where(point_valid[:, None], dl, torch.zeros_like(dl))
-        dRp, dtp = lie.se3_exp(dp)
-        R_new = dRp @ Rp
-        t_new = (dRp @ tp[..., None])[..., 0] + dtp
-        pts_new = pts + dl
-        new_cost = total_cost(R_new, t_new, pts_new, mask, robust)
-        accept = new_cost < cost
-        converged = accept & (cost - new_cost <= 1e-6 * cost)
-        Rp = torch.where(accept, R_new, Rp)
-        tp = torch.where(accept, t_new, tp)
-        pts = torch.where(accept, pts_new, pts)
-        lam = torch.where(accept, (lam * 0.33).clamp_min(1e-7), (lam * 5.0).clamp_max(1e6))
-        cost = torch.where(accept, new_cost, cost)
-        return Rp, tp, pts, lam, cost, converged
-
-    def run_pass(Rp, tp, pts, mask, robust, n_iters):
-        cost = total_cost(Rp, tp, pts, mask, robust)
-        lam = torch.tensor(1e-4, dtype=dt, device=dev)
+    def run_pass(Rp, tp, pts, mask, robust, step, n_iters):
+        cost = _ba_cost(prob, Rp, tp, pts, mask, robust, delta)
+        state = LMState(Rp, tp, pts, torch.tensor(1e-4, dtype=R.dtype, device=R.device), cost,
+                        torch.zeros((), dtype=torch.bool, device=R.device))
         for _ in range(n_iters):
-            Rp, tp, pts, lam, cost, converged = lm_iteration(Rp, tp, pts, lam, cost, mask, robust)
-            if bool(converged):  # a stopped pass leaves its state unchanged
-                break
-        return Rp, tp, pts, cost
+            state = step(state, mask, prob)
+        return state.R, state.t, state.points, state.cost
 
     # pass 1: robust, rotations projected to SO(3) at entry and exit (BA
     # output feeds keyframe poses and triangulation)
-    R1, t1, pts1, _ = run_pass(lie.so3_project(R), t, points, obs_valid, True, iters_huber)
+    R1, t1, pts1, _ = run_pass(lie.so3_project(R), t, points, obs_valid, True, robust_step,
+                               iters_huber)
     R1 = lie.so3_project(R1)
-    s, _, Xc = chi2_of(R1, t1, pts1)
+    s, _, Xc = _ba_chi2(prob, R1, t1, pts1)
     keep = obs_valid & (s <= chi2_th) & (Xc[..., 2] > 1e-6)
     # pass 2: quadratic on the survivors
-    R2, t2, pts2, cost = run_pass(R1, t1, pts1, keep, False, iters_trimmed)
+    R2, t2, pts2, cost = run_pass(R1, t1, pts1, keep, False, trimmed_step, iters_trimmed)
     R2 = lie.so3_project(R2)
-    s_final, _, Xc2 = chi2_of(R2, t2, pts2)
+    s_final, _, Xc2 = _ba_chi2(prob, R2, t2, pts2)
     inlier_obs = obs_valid & (s_final <= chi2_th) & (Xc2[..., 2] > 1e-6)
     return BAResult(R=R2, t=t2, points=pts2, inlier_obs=inlier_obs, cost=cost)
 
@@ -373,9 +448,9 @@ def bundle_adjustment_streams(K, R, t, points, obs_pose, obs_point, obs_uv, obs_
     one set of segment sums assembles all S normal equations; the S reduced
     6P x 6P systems go through one batched Cholesky. Damping, cost, accept
     or reject and convergence are (S,) vectors: a stream that has converged
-    keeps its state while the others iterate (one host check per iteration,
-    of whether all have), so each stream takes the steps its own solve
-    would take."""
+    keeps its state while the others iterate, so each stream takes the steps
+    its own solve would take. Each pass runs its fixed count of iterations,
+    with no host read inside the solve."""
     S, P = R.shape[:2]
     M, O = points.shape[1], obs_pose.shape[1]
     dev, dt = R.device, R.dtype
@@ -462,8 +537,6 @@ def bundle_adjustment_streams(K, R, t, points, obs_pose, obs_point, obs_uv, obs_
         done = torch.zeros((S,), dtype=torch.bool, device=dev)
         for _ in range(n_iters):
             Rp, tp, pts, lam, cost, done = lm_iteration(Rp, tp, pts, lam, cost, done, mask, robust)
-            if bool(done.all()):
-                break
         return Rp, tp, pts, cost
 
     valid = obs_valid.reshape(S * O)

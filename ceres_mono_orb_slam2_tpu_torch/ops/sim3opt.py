@@ -22,13 +22,14 @@ Tangent order everywhere: (upsilon(3), omega(3), sigma), see ops/lie.py.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import NamedTuple
 
 import torch
 
 from ceres_mono_orb_slam2_tpu_torch.ops import lie
 from ceres_mono_orb_slam2_tpu_torch.ops.optim import (
-    SegmentSum, _proj_jacobian, _project, group_sum, huber_cost, huber_weight, pcg)
+    SegmentSum, _proj_jacobian, _project, group_sum, huber_cost, huber_weight, pcg, segment_sum)
 
 
 class Sim3Result(NamedTuple):
@@ -137,6 +138,84 @@ def _edge_residuals(R, t, s, ei, ej, Rm, tm, sm):
     return lie.sim3_log(*lie.sim3_compose(Rji_i, tji_i, sji_i, Rjinv, tjinv, sjinv))  # (E, 7)
 
 
+class EGProblem(NamedTuple):
+    """What stays fixed through an essential-graph solve: the edges, their
+    measurements and adjoints, the weights, the free-vertex mask and the
+    edge-to-vertex segment-sum index. Tensors only, so that one GN
+    iteration is a function of tensors (`gn_iteration`, captured per shape
+    by `LoopClosing`)."""
+    ei: torch.Tensor  # (E,) int64
+    ej: torch.Tensor
+    Rm: torch.Tensor  # (E, 3, 3) measured S_ji
+    tm: torch.Tensor
+    sm: torch.Tensor
+    Adj_m: torch.Tensor  # (E, 7, 7)
+    ew: torch.Tensor  # (E,) edge weight (validity as 0 / 1)
+    free: torch.Tensor  # (P, 1) 1 where the vertex moves
+    to_vertex: torch.Tensor  # SegmentSum index over [i-ends, j-ends]
+
+
+class EGState(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    s: torch.Tensor
+    lam: torch.Tensor
+    cost: torch.Tensor
+
+
+def _eg_cost(prob: EGProblem, R, t, s, allsum):
+    r = _edge_residuals(R, t, s, prob.ei, prob.ej, prob.Rm, prob.tm, prob.sm)
+    return allsum((prob.ew * (r * r).sum(-1)).sum())
+
+
+def _gn_iteration(state: EGState, prob: EGProblem, cg_iters: int, allsum) -> EGState:
+    """One damped Gauss-Newton iteration of `optimize_essential_graph`, its
+    `cg_iters` PCG iterations included."""
+    R, t, s, lam, cost = state
+    ei, ej, ew, free = prob.ei, prob.ej, prob.ew, prob.free
+    eye7 = torch.eye(7, dtype=R.dtype, device=R.device)
+
+    def to_vertex(v):
+        return allsum(segment_sum(prob.to_vertex, v))
+
+    r = _edge_residuals(R, t, s, ei, ej, prob.Rm, prob.tm, prob.sm)  # (E, 7)
+    Ji = (lie.sim3_right_jacobian_inv_approx(-r) @ prob.Adj_m) * ew[:, None, None]  # (E, 7, 7)
+    Jj = -lie.sim3_right_jacobian_inv_approx(r) * ew[:, None, None]
+    # gradient b = -J^T r, summed onto the vertices
+    b = to_vertex(torch.cat([-torch.einsum("eki,ek->ei", Ji, r),
+                             -torch.einsum("eki,ek->ei", Jj, r)])) * free
+    # block diagonal of H: the Jacobi preconditioner and the damping
+    Hdiag = to_vertex(torch.cat([torch.einsum("eki,ekl->eil", Ji, Ji),
+                                 torch.einsum("eki,ekl->eil", Jj, Jj)]))
+    Hdamp = lam * (Hdiag * eye7)
+    # inv_ex: the bits of inv without its host check of `info`
+    Minv = torch.linalg.inv_ex(Hdiag + Hdamp + 1e-6 * eye7)[0]
+
+    def Hv(x):  # damped Gauss-Newton matvec, matrix-free over the edges
+        yi = torch.einsum("ekl,el->ek", Ji, x[ei]) + torch.einsum("ekl,el->ek", Jj, x[ej])
+        out = to_vertex(torch.cat([torch.einsum("eki,ek->ei", Ji, yi),
+                                   torch.einsum("eki,ek->ei", Jj, yi)]))
+        return (out + torch.einsum("pij,pj->pi", Hdamp, x) + 1e-6 * x) * free
+
+    dx = pcg(Hv, lambda v: torch.einsum("pij,pj->pi", Minv, v), b, cg_iters) * free
+    dR, dtv, ds = lie.sim3_exp(dx)
+    R_new = dR @ R
+    t_new = ds[:, None] * (dR @ t[..., None])[..., 0] + dtv
+    s_new = ds * s
+    new_cost = _eg_cost(prob, R_new, t_new, s_new, allsum)
+    accept = new_cost < cost
+    return EGState(R=torch.where(accept, R_new, R), t=torch.where(accept, t_new, t),
+                   s=torch.where(accept, s_new, s),
+                   lam=torch.where(accept, (lam * 0.33).clamp_min(1e-6), (lam * 4.0).clamp_max(1e4)),
+                   cost=torch.where(accept, new_cost, cost))
+
+
+def gn_iteration(state: EGState, prob: EGProblem, cg_iters: int = 100) -> EGState:
+    """One GN iteration of the single-process essential graph (tensors in
+    and out; `LoopClosing` captures it per (P, E) with `cg_iters` bound)."""
+    return _gn_iteration(state, prob, cg_iters, group_sum(None))
+
+
 def optimize_essential_graph(
     R,  # (P, 3, 3) initial Sim(3) rotations (world -> camera, s R | t form)
     t,  # (P, 3)
@@ -151,6 +230,7 @@ def optimize_essential_graph(
     gn_iters: int = 30,
     cg_iters: int = 100,
     group=None,
+    step=None,
 ) -> EssentialGraphResult:
     """Sim(3) pose-graph optimization, matrix-free PCG Gauss-Newton.
 
@@ -163,53 +243,21 @@ def optimize_essential_graph(
     block diagonal of H, the H v matvec) is this rank's segment sum
     followed by an all_reduce over the group, and the (P, 7) vertex state
     stays replicated (parallel/sharded_ba.optimize_essential_graph_sharded).
+
+    `step(state, problem)` runs one GN iteration (by default
+    `_gn_iteration` with `cg_iters` and the group's sum; `LoopClosing`
+    passes its captured `gn_iteration` without a group).
     """
     P = R.shape[0]
     dev, dt = R.device, R.dtype
     ei, ej = edge_i.long(), edge_j.long()
-    free = (~fixed).to(dt)[:, None]
-    ew = edge_valid.to(dt)
-    eye7 = torch.eye(7, dtype=dt, device=dev)
-    # every edge lands on its two vertices: one segment sum over [i-ends, j-ends]
-    to_vertex = SegmentSum(torch.cat([ei, ej]), P)
     allsum = group_sum(group)
-    Adj_m = lie.sim3_adjoint(Rm, tm, sm)
-
-    def cost_fn(R, t, s):
-        r = _edge_residuals(R, t, s, ei, ej, Rm, tm, sm)
-        return allsum((ew * (r * r).sum(-1)).sum())
-
-    cost = cost_fn(R, t, s)
-    lam = torch.tensor(1e-4, dtype=dt, device=dev)
+    # every edge lands on its two vertices: one segment sum over [i-ends, j-ends]
+    prob = EGProblem(ei, ej, Rm, tm, sm, lie.sim3_adjoint(Rm, tm, sm), edge_valid.to(dt),
+                     (~fixed).to(dt)[:, None], SegmentSum(torch.cat([ei, ej]), P).index)
+    step = step or partial(_gn_iteration, cg_iters=cg_iters, allsum=allsum)
+    state = EGState(R, t, s, torch.tensor(1e-4, dtype=dt, device=dev),
+                    _eg_cost(prob, R, t, s, allsum))
     for _ in range(gn_iters):
-        r = _edge_residuals(R, t, s, ei, ej, Rm, tm, sm)  # (E, 7)
-        Ji = (lie.sim3_right_jacobian_inv_approx(-r) @ Adj_m) * ew[:, None, None]  # (E, 7, 7)
-        Jj = -lie.sim3_right_jacobian_inv_approx(r) * ew[:, None, None]
-        # gradient b = -J^T r, summed onto the vertices
-        b = allsum(to_vertex(torch.cat([-torch.einsum("eki,ek->ei", Ji, r),
-                                        -torch.einsum("eki,ek->ei", Jj, r)]))) * free
-        # block diagonal of H: the Jacobi preconditioner and the damping
-        Hdiag = allsum(to_vertex(torch.cat([torch.einsum("eki,ekl->eil", Ji, Ji),
-                                            torch.einsum("eki,ekl->eil", Jj, Jj)])))
-        Hdamp = lam * (Hdiag * eye7)
-        Minv = torch.linalg.inv(Hdiag + Hdamp + 1e-6 * eye7)
-
-        def Hv(x):  # damped Gauss-Newton matvec, matrix-free over the edges
-            yi = torch.einsum("ekl,el->ek", Ji, x[ei]) + torch.einsum("ekl,el->ek", Jj, x[ej])
-            out = allsum(to_vertex(torch.cat([torch.einsum("eki,ek->ei", Ji, yi),
-                                              torch.einsum("eki,ek->ei", Jj, yi)])))
-            return (out + torch.einsum("pij,pj->pi", Hdamp, x) + 1e-6 * x) * free
-
-        dx = pcg(Hv, lambda v: torch.einsum("pij,pj->pi", Minv, v), b, cg_iters) * free
-        dR, dtv, ds = lie.sim3_exp(dx)
-        R_new = dR @ R
-        t_new = ds[:, None] * (dR @ t[..., None])[..., 0] + dtv
-        s_new = ds * s
-        new_cost = cost_fn(R_new, t_new, s_new)
-        accept = new_cost < cost
-        R = torch.where(accept, R_new, R)
-        t = torch.where(accept, t_new, t)
-        s = torch.where(accept, s_new, s)
-        lam = torch.where(accept, (lam * 0.33).clamp_min(1e-6), (lam * 4.0).clamp_max(1e4))
-        cost = torch.where(accept, new_cost, cost)
-    return EssentialGraphResult(R=lie.so3_project(R), t=t, s=s, cost=cost)
+        state = step(state, prob)
+    return EssentialGraphResult(R=lie.so3_project(state.R), t=state.t, s=state.s, cost=state.cost)

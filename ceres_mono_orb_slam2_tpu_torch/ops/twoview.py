@@ -121,15 +121,25 @@ def _score_fundamental(F21, xy1, xy2, valid, sigma2: float = 1.0):
     return torch.where(valid, sc, zero).sum(-1), valid & ok1 & ok2
 
 
-def triangulate_dlt(P1, P2, xy1, xy2):
-    """Linear triangulation: P1, P2 (..., 3, 4); xy (..., 2) -> (..., 3)."""
+def dlt_normal_matrix(P1, P2, xy1, xy2):
+    """A^T A (..., 4, 4) of the linear triangulation of xy1 / xy2 (..., 2)
+    under P1, P2 (..., 3, 4): its smallest eigenvector is the point."""
     r0 = xy1[..., 0, None] * P1[..., 2, :] - P1[..., 0, :]
     r1 = xy1[..., 1, None] * P1[..., 2, :] - P1[..., 1, :]
     r2 = xy2[..., 0, None] * P2[..., 2, :] - P2[..., 0, :]
     r3 = xy2[..., 1, None] * P2[..., 2, :] - P2[..., 1, :]
     A = torch.stack([r0, r1, r2, r3], dim=-2)
-    x = _smallest_eigvec(A.transpose(-1, -2) @ A)
+    return A.transpose(-1, -2) @ A
+
+
+def dlt_point(x):
+    """The homogeneous solution x (..., 4) as a 3D point (..., 3)."""
     return x[..., :3] / _safe_w(x[..., 3])[..., None]
+
+
+def triangulate_dlt(P1, P2, xy1, xy2):
+    """Linear triangulation: P1, P2 (..., 3, 4); xy (..., 2) -> (..., 3)."""
+    return dlt_point(_smallest_eigvec(dlt_normal_matrix(P1, P2, xy1, xy2)))
 
 
 def check_rt(R, t, K, xy1, xy2, valid, th2: float = 4.0, sigma2: float = 1.0):

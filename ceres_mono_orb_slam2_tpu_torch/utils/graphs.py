@@ -2,10 +2,12 @@
 
 The JAX package compiles its per-frame path into XLA programs, one per input
 shape (`Tracking._ensure_frontend`, `build_fused_step`, the jitted
-`pose_optimization`). A `CapturedFunction` runs the same PyTorch ops and
-hand-written kernels as a plain call of its function, captured once per
-input-shape key into a `torch.cuda.CUDAGraph` and replayed after that: one
-graph launch in place of the thousands of launches Python would issue.
+`pose_optimization`), and the mapper's device work too (the local-BA scan,
+the vmapped triangulation, the essential graph). A `CapturedFunction` runs
+the same PyTorch ops and hand-written kernels as a plain call of its
+function, captured once per input-shape key into a `torch.cuda.CUDAGraph`
+and replayed after that: one graph launch in place of the thousands of
+launches Python would issue.
 
 Each call of a `CapturedFunction`:
 
@@ -14,14 +16,48 @@ Each call of a `CapturedFunction`:
   buffer itself (`gathered`: a gather with `out=`, so that the tensor it
   gathers from is never part of a capture). Any other leaf of the argument
   tree raises `TypeError`: a Python number would be frozen into the capture;
-- on the first call for a key, runs the function on the static buffers on a
-  side stream (which creates the cuBLAS handle and workspace and fills the
-  allocator; its result is this call's result), then captures it on that
-  stream while holding `lock` (the map lock: a mapper thread then runs no
-  map stage), with `capture_error_mode="thread_local"`, so that the eager
+- on the first call for a key, runs the function on the static buffers on
+  its owner's side stream (which creates the cuBLAS handle and workspace and
+  fills the allocator; its result is this call's result), then captures it
+  on that stream while holding `lock` (the map lock for the tracker's
+  programs: a mapper thread then runs no map stage) and then the process's
+  capture lock, with `capture_error_mode="thread_local"`, so that the eager
   work other threads issue meanwhile is not refused;
 - on later calls, replays the graph on the current stream;
 - hands out clones of the outputs, since the next replay overwrites them.
+
+Owners. The tracker's programs (the frontend, the unfused pose solve, the
+batched step of `MultiStreamSLAM`) belong to the thread that tracks, owner
+"tracker". Local mapping's programs (the local-BA iterations, the two halves
+of the triangulation) and loop closing's (the essential graph's GN
+iteration) belong to the mapper thread, owner "mapper"; serially the
+caller's thread runs them. Each owner has its own side stream. Several
+threads may own "mapper" programs (a threaded `MultiStreamSLAM` runs a mapper
+thread per stream), so those warm up under the capture lock as well. One
+capture runs at a time in the process: the caching allocator refuses to
+empty its cache while a capture is under way, and captures do not wait for
+the device. The lock order is `lock`, then the capture lock, on every
+thread; a mapper program takes no `lock`, since local mapping runs its
+device solves without the map lock. A capture may thus run on the mapper
+thread while the caller's thread tracks: the caller synchronises the
+stream it uses, never the whole device (`torch.cuda.synchronize()` from
+another thread invalidates a capture in progress, and the mapper thread
+then fails).
+
+The programs of one owner share one memory pool in the process (one a
+device, kept alive by a sentinel graph), across functions and systems:
+every replay runs on its caller's current stream, which is the default
+stream on every thread of the port, so no two programs ever run at once,
+and their outputs are cloned at once. A new capture then reuses what the
+earlier ones freed, so one program's static outputs may lie in another's
+intermediates: a replay and the clone of its outputs are enqueued under one
+process-wide lock, with no other thread's replay between them. The pool
+holds about one program's intermediates rather than their sum: with a pool a function, the 2.7 GB triangulation
+programs of 8 threaded streams (2000 keypoints each) exhausted an 80 GB
+H100.
+`max_programs` bounds how many programs one function keeps (the least
+recently called goes first): local-BA windows change with every keyframe,
+so their keys rarely repeat after the solve that made them.
 
 On the CPU the function runs on the static buffers at every call, without
 capture: the same staging and the same clones. A capture or a replay that
@@ -29,13 +65,17 @@ fails raises; nothing falls back to running the function eagerly.
 
 The hand-written kernels' wrappers count their launches
 (`ops/orb/kernels.launch_counts`) only when Python calls them. The counts a
-capture adds are taken back (nothing ran) and added again at every replay,
-so the counts stay one per kernel launch on the card.
+tracker capture adds are taken back (nothing ran) and added again at every
+replay, so the counts stay one per kernel launch on the card. The mapper's
+programs run no hand-written kernel (local mapping and loop closing extract
+nothing), and their captures leave the counts alone, which the tracker's
+replays move meanwhile.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -72,14 +112,41 @@ def stacked(tensors) -> Fill:
 
 
 _side_streams = {}
+_pools = {}
+
+# one capture at a time in the process (see the module docstring)
+_capture_lock = threading.Lock()
+# a replay and the clone of its outputs, enqueued with no other replay
+# between them (see the module docstring)
+_replay_lock = threading.Lock()
 
 
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    """The side stream on which programs of `device` warm up and capture
-    (one per device: a cuBLAS workspace belongs to its stream)."""
-    s = _side_streams.get(device)
+def _owner_pool(device: torch.device, owner: str):
+    """The memory pool `owner`'s programs of `device` capture into (call
+    under the capture lock). A one-kernel sentinel graph is captured into it
+    first and kept for the process's life: the caching allocators refuse a
+    capture into a pool whose every graph was freed, as a system's are when
+    it is dropped, and a `torch.cuda.MemPool` holds the device allocator's
+    pool but not the pinned host allocator's."""
+    entry = _pools.get((device, owner))
+    if entry is None:
+        pool, sentinel = torch.cuda.graph_pool_handle(), torch.cuda.CUDAGraph()
+        with torch.cuda.stream(_capture_stream(device, owner)):
+            sentinel.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                torch.zeros(1, device=device)
+            finally:
+                sentinel.capture_end()
+        entry = _pools[(device, owner)] = (pool, sentinel)
+    return entry[0]
+
+
+def _capture_stream(device: torch.device, owner: str) -> torch.cuda.Stream:
+    """The side stream on which `owner`'s programs of `device` warm up and
+    capture (a cuBLAS workspace belongs to its stream)."""
+    s = _side_streams.get((device, owner))
     if s is None:
-        s = _side_streams[device] = torch.cuda.Stream(device)
+        s = _side_streams[(device, owner)] = torch.cuda.Stream(device)
     return s
 
 
@@ -101,30 +168,26 @@ class Program:
     def input_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.inputs)
 
-    def pool_bytes(self) -> int:
-        """Bytes of the graph's private memory pool (its intermediates and
-        static outputs) on the card; 0 on the CPU."""
-        if self.graph is None:
-            return 0
-        pool = tuple(self.graph.pool())
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
-
-
 class CapturedFunction:
     """`fn` captured once per input-shape key and replayed (see the module
     docstring). `fn` takes and returns trees (tuples, named tuples) of
-    tensors. `lock` is a context manager factory held around each capture.
+    tensors. `lock` is a context manager factory held around each capture;
+    `owner` names the thread that calls it ("tracker" or "mapper"), whose
+    side stream it captures on; `max_programs` bounds the programs it keeps.
     One thread calls a CapturedFunction at a time."""
 
     def __init__(self, fn: Callable, device, name: str = "",
-                 lock: Optional[Callable[[], contextlib.AbstractContextManager]] = None):
+                 lock: Optional[Callable[[], contextlib.AbstractContextManager]] = None,
+                 owner: str = "tracker", max_programs: Optional[int] = None):
         self.fn = fn
         self.device = resolve_device(device)
         self.name = name or getattr(fn, "__name__", "program")
         self.lock = lock or contextlib.nullcontext
-        self.programs = {}
+        self.owner = owner
+        self.max_programs = max_programs
+        self.programs = {}  # key -> Program, least recently called first
         self.last_inputs = None  # the static argument tree of the last call
+        self.n_captures = self.n_replays = self.n_evicted = 0
 
     # ---------------------------------------------------------------- staging
 
@@ -148,15 +211,28 @@ class CapturedFunction:
             else:
                 dst.copy_(a)
 
+    def _program(self, key):
+        """The program of `key` (made, and the oldest dropped past
+        `max_programs`, when new), moved to the most recent end."""
+        prog = self.programs.pop(key, None)
+        if prog is None:
+            if self.max_programs is not None and len(self.programs) >= self.max_programs:
+                # not during another thread's capture into the same pool
+                with _capture_lock:
+                    if self.device.type == "cuda":  # a dropped graph may still run
+                        torch.cuda.current_stream(self.device).synchronize()
+                    del self.programs[next(iter(self.programs))]
+                self.n_evicted += 1
+            prog = Program(key, [torch.empty(s, dtype=dt, device=self.device) for s, dt in key[1]])
+        self.programs[key] = prog
+        return prog
+
     # ------------------------------------------------------------------- call
 
     def __call__(self, *args):
         key, leaves, spec = self._key(args)
-        prog = self.programs.get(key)
-        new = prog is None
-        if new:
-            prog = Program(key, [torch.empty(s, dtype=dt, device=self.device) for s, dt in key[1]])
-            self.programs[key] = prog
+        prog = self._program(key)
+        new = prog.n_calls == 0
         self._stage(prog, leaves)
         static_args = self.last_inputs = pytree.tree_unflatten(prog.inputs, spec)
         prog.n_calls += 1
@@ -170,42 +246,92 @@ class CapturedFunction:
                 del self.programs[key]
                 raise
         else:
-            prog.graph.replay()
+            with _replay_lock:
+                prog.graph.replay()
+                out = pytree.tree_map_only(torch.Tensor, torch.clone, prog.outputs)
             prog.n_replays += 1
+            self.n_replays += 1
             for name, n in prog.launches.items():
                 kernels.launch_counts[name] += n
-            out = prog.outputs
+            return out
         return pytree.tree_map_only(torch.Tensor, torch.clone, out)
 
     def _warm_up_and_capture(self, prog: Program, static_args):
         """The first call of a key: fn on the static buffers on the side
         stream (the call's result), then its capture on that stream."""
+        if self.owner == "tracker":  # one thread: warm up without the locks
+            out = self._warm_up(static_args)
+            with self.lock(), _capture_lock:
+                self._capture(prog, static_args)
+        else:  # its owner's side stream may serve several threads
+            with self.lock(), _capture_lock:
+                out = self._warm_up(static_args)
+                self._capture(prog, static_args)
+        return out
+
+    def _warm_up(self, static_args):
         current = torch.cuda.current_stream(self.device)
-        side = _capture_stream(self.device)
+        side = _capture_stream(self.device, self.owner)
         side.wait_stream(current)
         with torch.no_grad(), torch.cuda.stream(side):
             out = self.fn(*static_args)
         current.wait_stream(side)
+        # the caller reads the outputs on its stream: their memory must not
+        # go back to the side stream, which another mapper thread's warm-up
+        # may write next, before that read
+        for t in pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                t.record_stream(current)
+        return out
+
+    def _capture(self, prog: Program, static_args):
+        """Capture fn into the program's graph in its owner's pool (the
+        `torch.cuda.graph` context without its device synchronisation and
+        cache emptying, which another thread's work must not wait for)."""
         graph = torch.cuda.CUDAGraph()
         counted = dict(kernels.launch_counts)
-        with self.lock(), torch.no_grad():
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        with torch.no_grad(), torch.cuda.stream(_capture_stream(self.device, self.owner)):
+            graph.capture_begin(pool=_owner_pool(self.device, self.owner),
+                                capture_error_mode="thread_local")
+            try:
                 prog.outputs = self.fn(*static_args)
-        # the capture launched nothing: its counts move to every replay
-        prog.launches = {name: kernels.launch_counts[name] - n for name, n in counted.items()
-                         if kernels.launch_counts[name] != n}
-        for name, n in prog.launches.items():
-            kernels.launch_counts[name] -= n
+            finally:
+                graph.capture_end()
+        if self.owner == "tracker":
+            # the capture launched nothing: its counts move to every replay
+            prog.launches = {name: kernels.launch_counts[name] - n for name, n in counted.items()
+                             if kernels.launch_counts[name] != n}
+            for name, n in prog.launches.items():
+                kernels.launch_counts[name] -= n
         prog.graph = graph
         prog.n_captures += 1
-        return out
+        self.n_captures += 1
 
     # ---------------------------------------------------------------- reports
 
+    def pool_bytes(self) -> int:
+        """Bytes of the memory pool its owner's programs share on the card
+        (their intermediates and static outputs); 0 on the CPU or before a
+        capture."""
+        entry = _pools.get((self.device, self.owner))
+        if entry is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(entry[0]))
+
     def report(self) -> list:
-        """One dict per program: its key's leaf shapes, captures, replays,
-        calls, and the MB of its static inputs and of its private pool."""
+        """One dict per program kept: its key's leaf shapes, captures,
+        replays, calls, the MB of its static inputs and of the pool it
+        shares with its owner's other programs."""
+        pool_mb = self.pool_bytes() / 1e6
         return [{"name": self.name, "shapes": [list(s) for s, _ in p.key[1]],
                  "captures": p.n_captures, "replays": p.n_replays, "calls": p.n_calls,
-                 "input_mb": p.input_bytes() / 1e6, "pool_mb": p.pool_bytes() / 1e6}
+                 "input_mb": p.input_bytes() / 1e6, "pool_mb": pool_mb}
                 for p in self.programs.values()]
+
+    def summary(self) -> dict:
+        """Captures and replays over the function's life (dropped programs
+        included), the programs kept and dropped, and its owner's pool MB."""
+        return {"name": self.name, "captures": self.n_captures, "replays": self.n_replays,
+                "kept": len(self.programs), "dropped": self.n_evicted,
+                "pool_mb": self.pool_bytes() / 1e6}

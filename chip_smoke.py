@@ -611,7 +611,10 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
         f"{total_s:.2f} s with {'the pacing and ' if pipelined else ''}the drain at shutdown beside the "
         f"serial run's {serial_s:.2f} s")
     log(f"[{name}] mapper: {len(lm.pass_ms)} passes, {mapping_s:.2f} s in all, mean stage ms "
-        f"{ {st: round(v, 2) for st, v in stage_ms.items()} }")
+        f"{ {st: round(v, 2) for st, v in stage_ms.items()} }; frames that waited for local mapping "
+        f"{slam.n_keyframe_waits}, longest wait {slam.max_keyframe_wait_ms:.1f} ms; the mapper's programs "
+        f"(captures, replays, kept, dropped, shared pool MB) {program_summaries(slam)}; fuse calls "
+        f"{sum(lm.fuse_keys.values())} over {len(lm.fuse_keys)} distinct (targets, points) keys")
     checks = {
         "initialises within 10 frames": first < 10,
         "tracks >= 90% after init": frac >= 0.9,
@@ -635,11 +638,14 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
 
 def timed(fn):
     """(result, ms) of fn(), on the host's clock around work that ends in a
-    device synchronisation."""
-    torch.cuda.synchronize()
+    synchronisation of the current stream, on which the port queues all its
+    work (its side streams join it). Not the whole device: a threaded
+    system's mapper may be capturing a program meanwhile, and a device-wide
+    synchronisation from another thread invalidates a capture."""
+    torch.cuda.current_stream().synchronize()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    torch.cuda.current_stream().synchronize()
     return out, (time.perf_counter() - t0) * 1e3
 
 
@@ -977,25 +983,32 @@ def phase_reloc():
     return launches, RELOC_FRAMES
 
 
+def loop_system(threaded: bool = False, graphs: bool = True):
+    """A MonoSLAM on the closed geometric circle (its vocabulary, the
+    geometric front end of seed 3) and the ground-truth camera centres."""
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+    from ceres_mono_orb_slam2_tpu_torch.ops import bow
+    from ceres_mono_orb_slam2_tpu_torch.utils.geosim import GeoExtractor, GeoWorld, make_geo_trajectory
+
+    cfg = slam_config(TUM_H, TUM_W, max_local_points=16384)
+    Rcw, tcw = make_geo_trajectory(LOOP_FRAMES, "circle", LOOP_STEP)
+    world = GeoWorld(np.random.default_rng(0), LOOP_LANDMARKS, shape="ring")
+    voc = bow.train_vocabulary(world.desc[:4000], k=8, levels=3, seed=0, device="cuda")
+    slam = MonoSLAM(cfg, vocabulary=voc, device="cuda", threaded=threaded, graphs=graphs)
+    slam.tracker.extractor = GeoExtractor(world, cfg.camera.K, Rcw, tcw, cfg.orb.n_features, TUM_H, TUM_W,
+                                          px_noise=0.3, bit_noise=2, seed=3, device="cuda")
+    return slam, np.einsum("tij,tj->ti", Rcw.transpose(0, 2, 1), -tcw)
+
+
 def run_loop(threaded: bool = False):
     """One run of the closed geometric circle through the full system;
     threaded, each frame waits for the mapper thread and for a running
     global BA, so that the run makes the serial run's every decision."""
-    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
-    from ceres_mono_orb_slam2_tpu_torch.ops import bow
-    from ceres_mono_orb_slam2_tpu_torch.utils.geosim import (
-        GeoExtractor, GeoWorld, frame_image, make_geo_trajectory)
+    from ceres_mono_orb_slam2_tpu_torch.utils.geosim import frame_image
     from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse
 
-    cfg = slam_config(TUM_H, TUM_W, max_local_points=16384)
-    n_feat = cfg.orb.n_features
-    Rcw, tcw = make_geo_trajectory(LOOP_FRAMES, "circle", LOOP_STEP)
-    world = GeoWorld(np.random.default_rng(0), LOOP_LANDMARKS, shape="ring")
-    voc = bow.train_vocabulary(world.desc[:4000], k=8, levels=3, seed=0, device="cuda")
-    slam = MonoSLAM(cfg, vocabulary=voc, device="cuda", threaded=threaded)
-    gx = slam.tracker.extractor = GeoExtractor(world, cfg.camera.K, Rcw, tcw, n_feat, TUM_H, TUM_W,
-                                               px_noise=0.3, bit_noise=2, seed=3, device="cuda")
-    gt_c = np.einsum("tij,tj->ti", Rcw.transpose(0, 2, 1), -tcw)
+    slam, gt_c = loop_system(threaded)
+    gx = slam.tracker.extractor
     est, gt, frame_ms, changed = [], [], [], []
 
     def frame(i):
@@ -1044,10 +1057,13 @@ def phase_loop():
             f"{slam.map.n_map_points()}, n_loops_closed {lc.n_loops_closed}, n_gba_runs {lc.n_gba_runs}, "
             f"n_detects {lc.n_detects}, ATE {run['ate_pct']:.4f}%, map_changed() true at frames "
             f"{[i for i, c in enumerate(run['changed']) if c]}")
+        log(f"[loop] run {r}: the mapper's programs (captures, replays, kept, dropped, shared pool MB): "
+            f"{program_summaries(slam)}")
         for st in lc.loop_stats:
             log(f"[loop] run {r}: loop at keyframe {st['kf']} <-> {st['match_kf']}: Sim(3) RANSAC and "
                 f"refinement {st['sim3_ms']:.1f} ms, correction and fusion {st['correct_fuse_ms']:.1f} ms, "
-                f"essential graph {st['essential_graph_ms']:.1f} ms ({st['edges']} edges), global BA "
+                f"essential graph {st['essential_graph_ms']:.1f} ms ({st['edges']} edges; its device solve "
+                f"{st['essential_graph_solve_ms']:.1f} ms), global BA "
                 f"{st['gba_ms']:.1f} ms (P={st.get('P')} M={st.get('M')} O={st.get('O')}, "
                 f"{st.get('solver')} solver); frame of the closure "
                 f"{max(run['frame_ms']):.1f} ms, median frame {np.median(run['frame_ms'][10:]):.1f} ms")
@@ -2011,6 +2027,45 @@ def first_difference(a: list, b: list):
     return None
 
 
+def program_summaries(slam) -> list:
+    """(name, captures, replays, kept, dropped, shared pool MB) of each of
+    the mapper's captured programs (local mapping's, then loop closing's)."""
+    fns = slam.local_mapper.captured() + (slam.loop_closer.captured() if slam.loop_closer else [])
+    return [(d["name"], d["captures"], d["replays"], d["kept"], d["dropped"], round(d["pool_mb"], 1))
+            for d in (f.summary() for f in fns)]
+
+
+def record_passes(local_mapper) -> list:
+    """After every mapping pass of `local_mapper` from now on: each
+    keyframe's pose and each map point's position, by id."""
+    seen, process = [], local_mapper._process
+
+    def run(kf):
+        process(kf)
+        m = local_mapper.map
+        seen.append(({k: (f.Rcw.copy(), f.tcw.copy()) for k, f in m.keyframes.items()},
+                     {i: np.array(mp.pos) for i, mp in m.map_points.items()}))
+
+    local_mapper._process = run
+    return seen
+
+
+def first_map_difference(a: list, b: list):
+    """Where two `record_passes` lists first differ in a bit, or None."""
+    if len(a) != len(b):
+        return f"{len(a)} against {len(b)} mapping passes"
+    for i, ((kfa, mpa), (kfb, mpb)) in enumerate(zip(a, b)):
+        if kfa.keys() != kfb.keys() or mpa.keys() != mpb.keys():
+            return f"pass {i}: keyframe or map point ids"
+        for k in kfa:
+            if not all(np.array_equal(x, y) for x, y in zip(kfa[k], kfb[k])):
+                return f"pass {i}: keyframe {k}"
+        for j in mpa:
+            if not np.array_equal(mpa[j], mpb[j]):
+                return f"pass {i}: map point {j}"
+    return None
+
+
 def first_pose_difference(a: list, b: list):
     if len(a) != len(b):
         return f"{len(a)} against {len(b)} poses"
@@ -2062,6 +2117,70 @@ def api_launches(fn):
     return out, api, dev
 
 
+def eager_mapper(slam):
+    """`slam` with its local mapping and loop closing op by op (their
+    graphs=False), its tracker still replaying: a pair of it and the system
+    as made compares the mapper's programs alone, without the ~1 s an eager
+    tracker spends a frame (the other pairs hold the tracker's)."""
+    from ceres_mono_orb_slam2_tpu_torch.models.localmapping import LocalMapping
+
+    lm = LocalMapping(slam.config, slam.map, loop_closer=slam.loop_closer, device="cuda", graphs=False)
+    slam.local_mapper = slam.tracker.local_mapper = slam.loop_closer.local_mapper = lm
+    slam.loop_closer._eg_step = None  # its graphs=False
+    return slam
+
+
+def graphs_loop_pair(checks: dict):
+    """The closed geometric circle serial through a MonoSLAM with graphs and
+    one whose mapper runs op by op (`eager_mapper`) in turn: each closure's
+    essential graph (R, t, s), the keyframe poses after the frame of each
+    closure and every frame's pose equal to the bit."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import sim3opt
+    from ceres_mono_orb_slam2_tpu_torch.utils.geosim import frame_image
+
+    systems = [loop_system()[0], eager_mapper(loop_system()[0])]
+    eg, closures, poses, frame_ms, current = ([], []), ([], []), ([], []), ([], []), [0]
+    solve = sim3opt.optimize_essential_graph
+
+    def recorded(*a, **kw):
+        res = solve(*a, **kw)
+        eg[current[0]].append(tuple(x.cpu().numpy() for x in (res.R, res.t, res.s)))
+        return res
+
+    sim3opt.optimize_essential_graph = recorded
+    try:
+        for i in range(LOOP_FRAMES):
+            for j, slam in enumerate(systems):
+                current[0] = j
+                T, ms = timed(lambda: slam.track_monocular(frame_image(i, TUM_H, TUM_W), i / 30.0))
+                poses[j].append(T)
+                frame_ms[j].append(ms)
+                if slam.map_changed():
+                    closures[j].append((i, {k: (f.Rcw.copy(), f.tcw.copy())
+                                            for k, f in slam.map.keyframes.items()}))
+    finally:
+        sim3opt.optimize_essential_graph = solve
+    for slam in systems:
+        slam.shutdown()
+    same_eg = len(eg[0]) == len(eg[1]) and all(_same(a, b) for a, b in zip(*eg))
+    same_closures = [i for i, _ in closures[0]] == [i for i, _ in closures[1]] and all(
+        a.keys() == b.keys() and all(np.array_equal(x, y) for k in a for x, y in zip(a[k], b[k]))
+        for (_, a), (_, b) in zip(*closures))
+    diff = first_pose_difference(*poses)
+    stages, stages_e = ([(round(st["essential_graph_ms"], 1), round(st["essential_graph_solve_ms"], 1), st["edges"])
+                         for st in slam.loop_closer.loop_stats] for slam in systems)
+    log(f"[graphs] geo-circle-{LOOP_FRAMES} serial: {len(eg[0])} / {len(eg[1])} essential graphs, R, t, s "
+        f"equal to the bit: {same_eg}; closures at frames {[i for i, _ in closures[0]]}, keyframe poses "
+        f"after each equal to the bit: {same_closures}; every frame's pose: {diff is None}"
+        f"{'' if diff is None else ' (' + diff + ')'}; essential graph ms, its device solve ms, edges: graphs "
+        f"{stages}, eager mapper "
+        f"{stages_e}; frame of the closure ms graphs {max(frame_ms[0]):.1f}, eager mapper "
+        f"{max(frame_ms[1]):.1f}; "
+        f"the mapper's programs {program_summaries(systems[0])}")
+    checks["geo-circle serial: essential graph and post-closure poses equal to the bit"] = (
+        same_eg and same_closures and diff is None and len(eg[0]) >= 1 and len(closures[0]) >= 1)
+
+
 def phase_graphs(seq, cfg):
     """Replay against eager in one process, each frame through a MonoSLAM
     that replays its programs and one with graphs=False in turn: every
@@ -2071,7 +2190,11 @@ def phase_graphs(seq, cfg):
     after the blackout and on a blinded tracker's relocalization (the
     captured pose solve) and its wide-radius fused frame; one S=8 batched
     step; the host API launches of one fused frame from torch.profiler
-    against the replay-counted kernel launches; each program's memory."""
+    against the replay-counted kernel launches; each program's memory. The
+    mapper's programs against eager: every keyframe pose and map point after
+    each mapping pass of the serial spiral, and the closed geometric circle's
+    essential graphs and post-closure poses against its mapper op by op
+    (`graphs_loop_pair`)."""
     from ceres_mono_orb_slam2_tpu_torch.models.tracking import State
     from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
     from ceres_mono_orb_slam2_tpu_torch.parallel import multistream as ms
@@ -2090,6 +2213,7 @@ def phase_graphs(seq, cfg):
     # the spiral, serial: frame times side by side, then one fused frame of
     # each system under the profiler (the tracker only, mapping after it)
     pair = graph_pair(cfg)
+    passes = [record_passes(slam.local_mapper) for slam, _ in pair]
     poses, frame_ms = lockstep(pair, range(GRAPH_FRAMES), seq.images, seq.timestamps)
     n_extract += 2 * GRAPH_FRAMES
     profiles = []
@@ -2105,6 +2229,7 @@ def phase_graphs(seq, cfg):
     n_extract += 2
     torch.cuda.synchronize()
     diff = first_difference(pair[0][1], pair[1][1]) or first_pose_difference(*poses)
+    map_diff = first_map_difference(*passes)
     med = [float(np.median(m[10:])) for m in frame_ms]
     launches_api = [sum(n for name, n in api.items() if "Launch" in name) for api, *_ in profiles]
     (g_api, g_counted, g_card, g_method), (e_api, e_counted, e_card, e_method) = profiles
@@ -2112,11 +2237,21 @@ def phase_graphs(seq, cfg):
         f"to the bit: {diff is None}{'' if diff is None else ' (' + diff + ')'}; median frame ms (frames 10+) "
         f"graphs {med[0]:.2f}, eager {med[1]:.2f} ({med[1] / med[0]:.2f}x); programs (name, largest input, "
         f"pool MB, input MB, captures, replays) {mb(pair[0][0].tracker.programs())}")
+    stage_means = [{st: round(float(np.mean([p[st] for p in slam.local_mapper.pass_ms if st in p] or [0.0])), 2)
+                    for st in ("triangulate", "fuse", "lba")} for slam, _ in pair]
+    log(f"[graphs] spiral serial: {len(passes[0])} mapping passes, every keyframe pose and map point after "
+        f"each pass equal to the bit: {map_diff is None}{'' if map_diff is None else ' (' + map_diff + ')'}; "
+        f"mean stage ms graphs {stage_means[0]}, eager {stage_means[1]}; "
+        f"the mapper's programs (captures, replays, kept, dropped, shared pool MB) "
+        f"{program_summaries(pair[0][0])}; local mapping programs (name, largest input, pool MB, input MB, "
+        f"captures, replays) {mb(pair[0][0].local_mapper.programs())}")
     log(f"[graphs] one fused frame under torch.profiler ({g_method} / {e_method}): host API launches graphs "
         f"{launches_api[0]} ({dict(g_api.most_common(6))}), eager {launches_api[1]} "
         f"({dict(e_api.most_common(6))}); kernels counted through the replay {g_counted}, on the card "
         f"{g_card}; eager counted {e_counted}, on the card {e_card}")
     checks["spiral serial: replay equal to eager to the bit"] = diff is None and len(pair[0][1]) >= 10
+    checks["spiral serial: keyframes and map points after every mapping pass equal to the bit"] = (
+        map_diff is None and len(passes[0]) >= 3)
     checks["the profiled frames are fused"] = g_method == e_method == "fused"
     checks["a fused frame is one graph launch"] = sum(n for name, n in g_api.items() if "GraphLaunch" in name) == 1
     checks["replay-counted kernel launches equal the card's, one each"] = (
@@ -2199,6 +2334,10 @@ def phase_graphs(seq, cfg):
         f"to the bit: {same}; step ms graphs {step_ms[0]:.2f}, eager {step_ms[1]:.2f}; programs "
         f"{mb(steps[0].programs())}")
     checks["S=8 batched step: replay equal to eager to the bit"] = same
+
+    # geo-circle-72 serial through both systems: the essential graph of each
+    # closure (its GN iterations replayed against eager), then the poses
+    graphs_loop_pair(checks)
 
     launches = dict(k.launch_counts)
     log(f"[graphs] launches {launches} over {n_extract} extractions")

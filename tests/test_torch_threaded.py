@@ -15,7 +15,9 @@ host copies of `Frame` / `KeyFrame` under two threads.
 - `run_global_ba` on a thread of its own stops between chunks when its
   `stop_cb` says so and then leaves the map as it was.
 - A frame that wanted a keyframe the busy mapper could not take makes the
-  next frame wait for the mapper."""
+  next frame wait for local mapping; the wait ends when local mapping is
+  idle, while a loop closure on the mapper thread runs on, and a wait that
+  runs into its timeout raises."""
 
 import sys
 import threading
@@ -321,14 +323,14 @@ def test_a_wanted_keyframe_waits_for_a_slow_mapper(monkeypatch):
         threading.Event().wait(0.6)
         return process(kf)
 
-    wait = slam.wait_mapper_idle
+    wait = slam.wait_local_mapping_idle
 
     def counted_wait(timeout=30.0):
         waits.append(slam.tracker.keyframe_wanted)
         return wait(timeout)
 
     monkeypatch.setattr(slam.local_mapper, "_process", slow_process)
-    monkeypatch.setattr(slam, "wait_mapper_idle", counted_wait)
+    monkeypatch.setattr(slam, "wait_local_mapping_idle", counted_wait)
     gt_c = np.einsum("tij,tj->ti", Rcw.transpose(0, 2, 1), -tcw)
     est, gt = [], []
     for k in range(n_frames):
@@ -338,10 +340,93 @@ def test_a_wanted_keyframe_waits_for_a_slow_mapper(monkeypatch):
             gt.append(gt_c[k])
     slam.shutdown()
     # every wait came from a wanted keyframe, whose flag it cleared first
-    assert slam.n_keyframe_waits == len(waits) >= 1 and not any(waits)
+    assert slam.n_keyframe_waits == len(waits) == len(slam.keyframe_wait_ms) >= 1 and not any(waits)
+    assert 0.0 < slam.max_keyframe_wait_ms < 60e3
     assert slam.get_tracking_state() == "OK" and slam.map.n_keyframes() >= 3  # the serial run's 3
     traj = np.linalg.norm(np.diff(np.stack(gt), axis=0), axis=1).sum()
     assert ate_rmse(np.stack(est), np.stack(gt)) < 0.05 * traj
+
+
+class _BlockedLoopCloser:
+    """A loop closer whose every drain blocks until `release` is set."""
+
+    gba_error = gba_thread = None
+
+    def __init__(self):
+        self.entered, self.release = threading.Event(), threading.Event()
+
+    def process_queue(self):
+        self.entered.set()
+        assert self.release.wait(TIMEOUT_S)
+
+
+def _wanted_keyframe_wait(slam):
+    """`_wait_for_wanted_keyframe` after a frame that wanted a keyframe, on a
+    thread of its own: (the thread, what it raised)."""
+    slam.tracker.keyframe_wanted = True
+    raised = []
+
+    def wait():
+        try:
+            slam._wait_for_wanted_keyframe()
+        except RuntimeError as e:
+            raised.append(e)
+
+    th = threading.Thread(target=wait)
+    th.start()
+    return th, raised
+
+
+def test_keyframe_wait_ends_at_local_mapping_idle_during_a_closure(monkeypatch):
+    """A keyframe wait that meets local mapping and then a loop closure on
+    the mapper thread ends when local mapping is idle, while the closure
+    still runs (the reference's loop closer has a thread of its own), and
+    records its ms."""
+    slam = MonoSLAM(_config(600), device="cpu", threaded=True)
+    closer = slam.loop_closer = _BlockedLoopCloser()
+    drained, process_queue = threading.Event(), slam.local_mapper.process_queue
+
+    def slow_drain():
+        threading.Event().wait(0.3)
+        process_queue()
+        drained.set()
+
+    monkeypatch.setattr(slam.local_mapper, "process_queue", slow_drain)
+    try:
+        slam.local_mapper.queue.append(10 ** 6)  # no such keyframe: the drain skips it
+        slam._wake_mapper()
+        th, raised = _wanted_keyframe_wait(slam)
+        th.join(timeout=10.0)
+        assert not th.is_alive() and not raised
+        assert drained.is_set() and not slam.local_mapper.queue
+        assert closer.entered.wait(10.0) and not slam.wait_mapper_idle(timeout=0.05)
+        assert slam.n_keyframe_waits == 1 and len(slam.keyframe_wait_ms) == 1
+    finally:
+        closer.release.set()
+        slam.shutdown()
+
+
+def test_keyframe_wait_past_its_timeout_raises(monkeypatch):
+    """A keyframe wait that local mapping does not end within
+    `keyframe_wait_timeout_s` raises and names the stage it waited for."""
+    slam = MonoSLAM(_config(600), device="cpu", threaded=True)
+    entered, release = threading.Event(), threading.Event()
+
+    def stuck_drain():
+        entered.set()
+        release.wait(TIMEOUT_S)
+
+    monkeypatch.setattr(slam.local_mapper, "process_queue", stuck_drain)
+    slam.keyframe_wait_timeout_s = 0.2
+    try:
+        slam._wake_mapper()
+        assert entered.wait(10.0)  # the drain runs: local mapping is busy
+        th, raised = _wanted_keyframe_wait(slam)
+        th.join(timeout=10.0)
+        assert not th.is_alive() and len(raised) == 1 and "local mapping" in str(raised[0])
+    finally:
+        release.set()
+        slam.shutdown()
 
 
 def _lazy_frame(seed: int, n: int = 256) -> Frame:

@@ -1,22 +1,27 @@
 """Keyframe decisions of the threaded MonoSLAM at full rate, on one GPU.
 
-    python tools/diag_threaded_keyframes.py [--frames 32] [--runs serial,threaded,eager,paced]
-                                            [--no-wait] [--sample]
+    python tools/diag_threaded_keyframes.py [--world spiral|geo-circle] [--frames 32]
+                                            [--runs serial,threaded,eager,paced] [--no-wait] [--sample]
 
-Renders the spiral ring world at 1241x376 (chip_smoke.py's sequence, 2000
-features) and runs its first `--frames` frames through the MonoSLAM of each
-run: `serial`, `threaded` (graphs, fed at full rate), `eager` (threaded,
-graphs=False, full rate) and `paced` (threaded, graphs, `wait_mapper_idle`
-after each frame). For each run it prints the ATE of the tracked centres,
-the keyframes, the mapper's passes and seconds, the median and p95 frame
-ms, the frames that waited for the mapper first
-(`MonoSLAM.n_keyframe_waits`), and per keyframe decision (frame, keyframes,
-inliers, the reference keyframe's tracked points, mapper idle, queued
-keyframes, new keyframe); then each frame's method, inliers and ms, and
-each mapping pass's stage ms. `--no-wait` turns off the facade's wait for
-the mapper after a wanted keyframe (the reference's behaviour: the keyframe
-is dropped); `--sample` prints per-thread stack samples of the threaded
-runs (tools/prof_torch_slam.py's ThreadSampler). Needs a CUDA device.
+`--world spiral` (the default) renders the spiral ring world at 1241x376
+(chip_smoke.py's sequence, 2000 features); `--world geo-circle` runs
+chip_smoke.py's closed geometric circle (72 frames at 640x480, 2000
+projected keypoints from 24,000 landmarks, its vocabulary), which closes a
+loop near its end. The first `--frames` frames (default: 32 of the spiral,
+all 72 of the circle) go through the MonoSLAM of each run: `serial`,
+`threaded` (graphs, fed at full rate), `eager` (threaded, graphs=False,
+full rate) and `paced` (threaded, graphs, `wait_mapper_idle` after each
+frame). For each run it prints the ATE of the tracked centres, the
+keyframes, the loops closed, the mapper's passes and seconds, the median
+and p95 frame ms, the frames that waited for local mapping
+(`MonoSLAM.n_keyframe_waits`) and the longest wait, and per keyframe
+decision (frame, keyframes, inliers, the reference keyframe's tracked
+points, mapper idle, queued keyframes, new keyframe); then each frame's
+method, inliers and ms, each mapping pass's stage ms and each closure's
+stage ms. `--no-wait` turns off the facade's wait after a wanted keyframe
+(the reference's behaviour: the keyframe is dropped); `--sample` prints
+per-thread stack samples of the threaded runs (tools/prof_torch_slam.py's
+ThreadSampler). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,12 +39,41 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from ceres_mono_orb_slam2_tpu_torch.models import tracking  # noqa: E402
 from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM  # noqa: E402
+from ceres_mono_orb_slam2_tpu_torch.ops import bow  # noqa: E402
 from ceres_mono_orb_slam2_tpu_torch.utils.config import (  # noqa: E402
     CameraConfig, ORBConfig, SlamConfig, StaticShapes)
+from ceres_mono_orb_slam2_tpu_torch.utils.geosim import (  # noqa: E402
+    GeoExtractor, GeoWorld, frame_image, make_geo_trajectory)
 from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse, make_rendered_sequence  # noqa: E402
 from prof_torch_slam import ThreadSampler  # noqa: E402
 
 H, W = 376, 1241
+# chip_smoke.py's [loop] world: a closed circle of 72 frames, step 0.1
+GEO_H, GEO_W, GEO_FRAMES, GEO_STEP, GEO_LANDMARKS = 480, 640, 72, 0.1, 24000
+
+
+class GeoCircle:
+    """chip_smoke.py's closed geometric circle: frames, timestamps, the
+    ground-truth centres, and a MonoSLAM with its vocabulary and front end."""
+
+    def __init__(self, n: int):
+        self.Rcw, self.tcw = make_geo_trajectory(GEO_FRAMES, "circle", GEO_STEP)
+        self.world = GeoWorld(np.random.default_rng(0), GEO_LANDMARKS, shape="ring")
+        self.voc = bow.train_vocabulary(self.world.desc[:4000], k=8, levels=3, seed=0, device="cuda")
+        self.cfg = SlamConfig(camera=CameraConfig(fx=500.0, fy=500.0, cx=GEO_W / 2.0, cy=GEO_H / 2.0,
+                                                  fps=30.0),
+                              orb=ORBConfig(n_features=2000), shapes=StaticShapes(max_local_points=16384))
+        self.images = [frame_image(i, GEO_H, GEO_W) for i in range(n)]
+        self.timestamps = np.arange(n) / 30.0
+
+    def gt_centers(self):
+        return np.einsum("tij,tj->ti", self.Rcw.transpose(0, 2, 1), -self.tcw)
+
+    def system(self, **kw):
+        slam = MonoSLAM(self.cfg, vocabulary=self.voc, device="cuda", **kw)
+        slam.tracker.extractor = GeoExtractor(self.world, self.cfg.camera.K, self.Rcw, self.tcw, 2000, GEO_H,
+                                              GEO_W, px_noise=0.3, bit_noise=2, seed=3, device="cuda")
+        return slam
 
 
 def _logged_decision(need):
@@ -61,7 +95,8 @@ def _logged_decision(need):
 
 def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool):
     threaded = name != "serial"
-    slam = MonoSLAM(cfg, device="cuda", threaded=threaded, graphs=name != "eager")
+    kw = dict(threaded=threaded, graphs=name != "eager")
+    slam = seq.system(**kw) if isinstance(seq, GeoCircle) else MonoSLAM(cfg, device="cuda", **kw)
     slam.tracker.decisions = []
     if no_wait:
         slam._wait_for_wanted_keyframe = lambda: None
@@ -85,17 +120,22 @@ def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool):
     est = np.asarray([-T[:3, :3].T @ T[:3, 3] for T in poses if T is not None])
     gt = seq.gt_centers()[idx]
     ate = 100.0 * ate_rmse(est, gt) / float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
-    lm = slam.local_mapper
+    lm, lc = slam.local_mapper, slam.loop_closer
     mapper_s = sum(sum(v for k, v in p.items() if k != "kf") for p in lm.pass_ms) / 1e3
     print(f"{name}: ATE {ate!r} %, sum of centres {float(est.sum())!r}, keyframes {slam.map.n_keyframes()}, "
-          f"passes {len(lm.pass_ms)}, mapper {mapper_s:.2f} s, wall {wall:.2f} s, frame ms (10+) median "
-          f"{np.median(frame_ms[10:]):.1f}, p95 {np.percentile(frame_ms[10:], 95):.1f}, keyframe waits "
-          f"{slam.n_keyframe_waits}", flush=True)
+          f"loops closed {lc.n_loops_closed if lc else 0}, passes {len(lm.pass_ms)}, mapper {mapper_s:.2f} s, "
+          f"wall {wall:.2f} s, frame ms (10+) median {np.median(frame_ms[10:]):.1f}, p95 "
+          f"{np.percentile(frame_ms[10:], 95):.1f}, max {max(frame_ms):.1f}, keyframe waits "
+          f"{slam.n_keyframe_waits}, longest {slam.max_keyframe_wait_ms:.1f} ms, waits ms "
+          f"{[round(w, 1) for w in slam.keyframe_wait_ms]}", flush=True)
     print("  decisions (frame, keyframes, inliers, reference tracked points, mapper idle, queued, new):",
           slam.tracker.decisions)
     print("  frames (id, method, inliers, ms):", [(st["frame_id"], st["method"], st.get("inliers_local"),
                                                    round(st["track_ms"])) for st in slam.tracker.frame_stats])
     print("  passes (stage ms):", [{k: round(v) for k, v in p.items()} for p in lm.pass_ms])
+    if lc is not None:
+        print("  closures (stage ms):", [{k: round(v, 1) if isinstance(v, float) else v for k, v in st.items()}
+                                         for st in lc.loop_stats])
     if sampler:
         print(sampler.report(top=30)[:12000])
     return ate
@@ -103,7 +143,8 @@ def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=32)
+    ap.add_argument("--world", choices=("spiral", "geo-circle"), default="spiral")
+    ap.add_argument("--frames", type=int, default=None, help="default: 32 (spiral), 72 (geo-circle)")
     ap.add_argument("--runs", default="serial,threaded,eager,paced")
     ap.add_argument("--no-wait", action="store_true",
                     help="drop a keyframe the busy mapper cannot take, as the reference does")
@@ -112,14 +153,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("diag_threaded_keyframes: no CUDA device", file=sys.stderr)
         return 1
-    cfg = SlamConfig(camera=CameraConfig(fx=500.0, fy=500.0, cx=W / 2.0, cy=H / 2.0, fps=30.0),
-                     orb=ORBConfig(n_features=2000), shapes=StaticShapes(max_local_points=4096))
-    seq = make_rendered_sequence(args.frames, H, W, 500.0, 500.0, motion="spiral", step=0.06, seed=11,
-                                 device="cuda")
+    if args.world == "geo-circle":
+        n = args.frames or GEO_FRAMES
+        cfg, seq = None, GeoCircle(n)
+    else:
+        n = args.frames or 32
+        cfg = SlamConfig(camera=CameraConfig(fx=500.0, fy=500.0, cx=W / 2.0, cy=H / 2.0, fps=30.0),
+                         orb=ORBConfig(n_features=2000), shapes=StaticShapes(max_local_points=4096))
+        seq = make_rendered_sequence(n, H, W, 500.0, 500.0, motion="spiral", step=0.06, seed=11,
+                                     device="cuda")
     tracking.Tracking._need_new_keyframe = _logged_decision(tracking.Tracking._need_new_keyframe)
     print(torch.cuda.get_device_name(0), flush=True)
     for name in args.runs.split(","):
-        run(name, seq, cfg, args.frames, args.no_wait, args.sample)
+        run(name, seq, cfg, n, args.no_wait, args.sample)
     return 0
 
 
