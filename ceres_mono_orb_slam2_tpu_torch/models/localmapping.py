@@ -16,23 +16,21 @@ under the lock behind staleness guards (a reset bumps `map_epoch`, a cull
 marks a keyframe bad, a fuse kills a point). Serially the guards never fire,
 so both modes run the same arithmetic.
 
-With `graphs=True` (the default) the device solves replay captured programs
-(`utils/graphs.py`, owner "mapper"), the JAX package's jits: each LM
-iteration of the local BA (one program per window shape and pass, replayed
-for every further iteration of the solve and by the second BA call), and the
-triangulation in two programs around its batched eigensolver; on the card
-its neighbour block is padded to TRI_BATCH rows, as the JAX package pads it
-to a fixed bucket, so one program per keypoint count serves every pass. The
-fuse runs batched and eager: its map-point block changes with every
-keyframe, so a capture would not replay. `graphs=False` runs the same
-functions op by op, on the actual neighbour count.
+With `graphs=True` (the default) each LM iteration of the local BA replays
+a captured program (`utils/graphs.py`, owner "mapper"), the JAX package's
+jitted scan: one program per window shape and pass, replayed for every
+further iteration of the solve and by the second BA call. `graphs=False`
+runs the same function op by op. The triangulation and the fuse run batched
+and eager, one call over all neighbours or targets (the JAX package's vmap):
+the fuse's map-point block changes with every keyframe, so a capture would
+not replay, and a captured triangulation either captures a program per
+neighbour count or pads the block to TRI_BATCH rows, which did more work
+than the eager call saves in launches.
 """
 
 from __future__ import annotations
 
-import collections
 import time
-from functools import partial
 from typing import List
 
 import numpy as np
@@ -77,18 +75,9 @@ class LocalMapping:
         self.n_local_ba = 0
         self.n_ba_aborted = 0  # local BAs whose second half a new keyframe skipped
         self.pass_ms: List[dict] = []  # per pass: wall ms of each stage
-        # (targets, map points) of each fuse call: whether its keys repeat
-        self.fuse_keys = collections.Counter()
-        # the device solves: captured programs, or the same functions eagerly
+        # the local BA's LM iterations: captured programs, or the same
+        # functions eagerly
         self.graphs = bool(graphs)
-        self._tri_search = self._program(mapping_batch.triangulation_search, "triangulation_search",
-                                         self.TRI_BATCH)
-        self._tri_gates = self._program(
-            partial(mapping_batch.triangulation_gates, ratio_factor=self.ratio_factor),
-            "triangulation_gates", self.TRI_BATCH)
-        # a growing neighbour count would capture a program per count, and
-        # their shared pool would hold the sum of their intermediates
-        self._tri_padded = self.graphs and self.device.type == "cuda"
         self._lm_robust = self._program(optim.lm_iteration_robust, "lba_lm_robust", self.BA_PROGRAMS)
         self._lm_trimmed = self._program(optim.lm_iteration_trimmed, "lba_lm_trimmed", self.BA_PROGRAMS)
 
@@ -103,7 +92,7 @@ class LocalMapping:
 
     def captured(self) -> list:
         """The `CapturedFunction`s of local mapping (none without graphs)."""
-        fns = (self._tri_search, self._tri_gates, self._lm_robust, self._lm_trimmed)
+        fns = (self._lm_robust, self._lm_trimmed)
         return [f for f in fns if isinstance(f, graphs_mod.CapturedFunction)]
 
     def programs(self) -> list:
@@ -265,17 +254,11 @@ class LocalMapping:
             if not nb_kfs:
                 return
             nb_kfs = nb_kfs[: self.TRI_BATCH]
-            # captured on the card, the neighbour block is TRI_BATCH rows, so
-            # that one program per keypoint count serves every pass (the JAX
-            # package's fixed bucket): the pad rows repeat the last neighbour
-            # with no free keypoint, which matches nothing
-            block = nb_kfs + [nb_kfs[-1]] * (self.TRI_BATCH - len(nb_kfs) if self._tri_padded else 0)
             cur = kf.dev_payload(self.device)
-            nb = [k.dev_payload(self.device) for k in block]
-            free2 = np.zeros((len(block), len(kf.kp_valid)), bool)
-            free2[:len(nb_kfs)] = [(k.mp_ids < 0) & k.kp_valid for k in nb_kfs]
+            nb = [k.dev_payload(self.device) for k in nb_kfs]
             host = (kf.Rcw, kf.tcw, (kf.mp_ids < 0) & kf.kp_valid,
-                    np.stack([k.Rcw for k in block]), np.stack([k.tcw for k in block]), free2)
+                    np.stack([k.Rcw for k in nb_kfs]), np.stack([k.tcw for k in nb_kfs]),
+                    np.stack([(k.mp_ids < 0) & k.kp_valid for k in nb_kfs]))
 
         # device solve without the lock
         R1, t1, free1, R2, t2, free2 = (self._dev(a) for a in host)
@@ -283,7 +266,7 @@ class LocalMapping:
         idx, good, X = mapping_batch.triangulate_with_neighbors(
             self.jK, self.j_invK, R1, t1, cur[0], cur[1], cur[2], cur[3], free1, R2, t2,
             stack(0), stack(1), stack(2), stack(3), free2,
-            self.j_ls2, self.j_sfs, self.ratio_factor, search=self._tri_search, gates=self._tri_gates)
+            self.j_ls2, self.j_sfs, self.ratio_factor)
         idx, good, X = idx.cpu().numpy(), good.cpu().numpy(), X.cpu().numpy()
 
         # apply: host creation in neighbour order; the first neighbour to
@@ -401,7 +384,6 @@ class LocalMapping:
 
         # device solve without the lock
         R, t, pos, normal, mind, maxd, desc, mvalid = (self._dev(a) for a in host)
-        self.fuse_keys[(len(targets), len(mp_ids))] += 1
         idx, valid = mapping_batch.fuse_into_targets(
             self.jK, R, t,
             torch.stack([d[0] for d in tgt]), torch.stack([d[1] for d in tgt]),
@@ -439,7 +421,6 @@ class LocalMapping:
 
         # device solve without the lock: the one-target call of the forward fuse
         Rcw, tcw, pos, normal, mind, maxd, desc = (self._dev(a) for a in host)
-        self.fuse_keys[(1, len(mp_ids))] += 1
         idx, valid = mapping_batch.fuse_into_targets(
             self.jK, Rcw[None], tcw[None], kp_und[None], kp_oct[None], kp_desc[None],
             kp_valid[None], pos, normal, mind, maxd, desc,

@@ -18,9 +18,9 @@ Here it is a pipeline stage driven by the System facade: after each frame
 before it corrects. Matching, RANSAC and the optimizers run on the device at
 the actual problem sizes; the Sim(3) RANSAC draws come from `uniform_noise`,
 which tests replace to inject draws. With `graphs=True` (the default) each
-GN iteration of the essential graph replays a captured program
-(`utils/graphs.py`), the JAX package's jitted solve; `graphs=False` runs it
-op by op.
+GN iteration of the essential graph and each LM iteration of the dense
+global BA replay a captured program (`utils/graphs.py`), the JAX package's
+jitted solves; `graphs=False` runs them op by op.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import torch
 
 from ceres_mono_orb_slam2_tpu_torch.models.map import Map, KeyFrame
 from ceres_mono_orb_slam2_tpu_torch.models.optimization import run_global_ba
-from ceres_mono_orb_slam2_tpu_torch.ops import bow, matcher, sim3opt, sim3solver
+from ceres_mono_orb_slam2_tpu_torch.ops import bow, matcher, optim, sim3opt, sim3solver
 from ceres_mono_orb_slam2_tpu_torch.utils import graphs as graphs_mod
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -92,15 +92,24 @@ class LoopClosing:
         # the essential graph's GN iteration (its PCG included): a captured
         # program per (P, E), replayed for every iteration of the solve
         # (utils/graphs.py, owner "mapper"), or the same function eagerly
+        # and the dense global BA's LM iterations: a program per map shape,
+        # replayed by every chunk of the solve
         self._eg_step = None
+        self._gba_steps = {}
         if graphs:
             self._eg_step = graphs_mod.CapturedFunction(
                 partial(sim3opt.gn_iteration, cg_iters=EG_CG_ITERS), self.device,
                 name="essential_graph_gn", owner="mapper", max_programs=2)
+            self._gba_steps = {
+                f"{kind}_step": graphs_mod.CapturedFunction(
+                    fn, self.device, name=f"gba_lm_{kind}", owner="mapper", max_programs=1)
+                for kind, fn in (("robust", optim.lm_iteration_robust),
+                                 ("trimmed", optim.lm_iteration_trimmed))}
 
     def captured(self) -> list:
         """The `CapturedFunction`s of loop closing (none without graphs)."""
-        return [self._eg_step] if self._eg_step is not None else []
+        return ([self._eg_step] if self._eg_step is not None else []) + list(
+            self._gba_steps.values())
 
     def programs(self) -> list:
         """`CapturedFunction.report()` of loop closing's programs."""
@@ -600,7 +609,8 @@ class LoopClosing:
             t0 = time.perf_counter()
             ok = run_global_ba(m, self.config, loop_id, n_iters=50,
                                stop_cb=lambda: self.stop_gba or index != self.full_ba_index,
-                               force_cg=self.gba_force_cg, device=self.device, stats=stat)
+                               force_cg=self.gba_force_cg, device=self.device, stats=stat,
+                               **self._gba_steps)
             stat["gba_ms"] = (time.perf_counter() - t0) * 1e3
             log.info("Global Bundle Adjustment %s", "finished" if ok else "aborted")
             if ok:

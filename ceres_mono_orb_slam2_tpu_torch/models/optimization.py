@@ -65,7 +65,8 @@ def _whole_map_problem(m, config, device):
 
 def run_global_ba(m, config, loop_kf_id: int, n_iters: int = 50, stop_cb=None,
                   chunk: int = 10, robust: bool = True, force_cg: bool = False,
-                  device=DEFAULT_DEVICE, stats: dict = None):
+                  device=DEFAULT_DEVICE, stats: dict = None, robust_step=None,
+                  trimmed_step=None):
     """Reference RunGlobalBundleAdjustment (LoopClosing.cc:646-739): global BA
     over a snapshot of the map with cooperative abort, side-field results,
     then spanning-tree propagation to keyframes and map points created while
@@ -80,6 +81,9 @@ def run_global_ba(m, config, loop_kf_id: int, n_iters: int = 50, stop_cb=None,
     the apply, never during the solve. Past `DENSE_BA_MAX_BLOCKS` pose-point pairs, or
     with `force_cg`, the matrix-free CG solver replaces the dense Schur one.
     `stats`, when given, receives P, M, O and the solver taken.
+    `robust_step` / `trimmed_step` run one iteration of the dense solver
+    (`optim.bundle_adjustment`'s; `LoopClosing` passes captured programs,
+    which every chunk replays).
 
     Returns True if the solve completed and was applied."""
     device = resolve_device(device)
@@ -102,7 +106,8 @@ def run_global_ba(m, config, loop_kf_id: int, n_iters: int = 50, stop_cb=None,
         else:
             res = optim.bundle_adjustment(K, R, t, pts, op, oj, ouv, ow, ovalid, jfixed, pvalid,
                                           iters_huber=it if robust else 0,
-                                          iters_trimmed=0 if robust else it)
+                                          iters_trimmed=0 if robust else it,
+                                          robust_step=robust_step, trimmed_step=trimmed_step)
         R, t, pts = res.R, res.t, res.points
         done += it
         if stop_cb is not None and stop_cb():

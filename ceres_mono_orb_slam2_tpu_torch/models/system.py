@@ -75,11 +75,10 @@ class MonoSLAM:
             self.loop_closer.local_mapper = self.local_mapper
         self._last_big_change = 0
         self.threaded = threaded
-        # frames that first waited for local mapping (`_wait_for_wanted_keyframe`),
-        # the ms of each wait, and how long one may last before it raises
+        # frames that first waited for local mapping (`_wait_for_wanted_keyframe`)
+        # and the ms of each wait
         self.n_keyframe_waits = 0
         self.keyframe_wait_ms: List[float] = []
-        self.keyframe_wait_timeout_s = JOIN_TIMEOUT_S
         # the mapper thread's wake-ups: passes asked of it and not yet run,
         # and the stop request, under one condition that also signals idle;
         # `_lm_running` while the thread drains the local-mapping queue
@@ -210,15 +209,15 @@ class MonoSLAM:
         mapping's idle, not at the end of the mapper thread's pass: a loop
         closure that follows runs on, and a keyframe made meanwhile queues
         behind it, as with the reference's own loop-closing thread. A wait
-        longer than `keyframe_wait_timeout_s` raises."""
+        longer than `JOIN_TIMEOUT_S` raises."""
         if self.threaded and self.tracker.keyframe_wanted:
             self.tracker.keyframe_wanted = False
             self.n_keyframe_waits += 1
             t0 = time.perf_counter()
-            idle = self.wait_local_mapping_idle(timeout=self.keyframe_wait_timeout_s)
+            idle = self.wait_local_mapping_idle(timeout=JOIN_TIMEOUT_S)
             self.keyframe_wait_ms.append((time.perf_counter() - t0) * 1e3)
             if not idle:
-                raise RuntimeError(f"a wanted keyframe waited {self.keyframe_wait_timeout_s} s for "
+                raise RuntimeError(f"a wanted keyframe waited {JOIN_TIMEOUT_S} s for "
                                    "local mapping to go idle")
 
     def _map_after_frame(self):

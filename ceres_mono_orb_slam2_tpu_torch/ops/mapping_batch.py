@@ -12,8 +12,6 @@ keyframe payloads already live on the device.
 
 from __future__ import annotations
 
-from functools import partial
-
 import torch
 
 from ceres_mono_orb_slam2_tpu_torch.ops import lie, matcher, twoview
@@ -104,25 +102,20 @@ def triangulation_gates(x, idx, valid, K, R1, t1, xy1, oct1, R2, t2, xy2, oct2,
 
 def triangulate_with_neighbors(K, invK, R1, t1, xy1, oct1, ang1, desc1, free1,
                                R2, t2, xy2, oct2, ang2, desc2, free2,
-                               level_sigma2, scale_factors, ratio_factor: float,
-                               search=triangulation_search, gates=None):
+                               level_sigma2, scale_factors, ratio_factor: float):
     """Epipolar search + triangulation + acceptance gates of the current
     keyframe (xy1 ... free1: (N, ...); free = unassociated and valid)
     against B neighbours (R2 (B,3,3), t2 (B,3), xy2 ... free2: (B, N, ...)),
     with the neighbour axis native (no loop over neighbours).
     Returns per-neighbour (idx (B,N), good (B,N), X (B,N,3) world points).
 
-    Two halves around the batched 4x4 eigensolver, which checks its result
-    on the host: `search(...)` -> (idx, valid, AtA) and `gates(x, idx,
-    valid, K, R1, t1, xy1, oct1, R2, t2, xy2, oct2, level_sigma2,
-    scale_factors)` -> (good, X), by default `triangulation_search` and
-    `triangulation_gates` with `ratio_factor` bound; `LocalMapping` passes
-    their captured programs."""
-    gates = gates or partial(triangulation_gates, ratio_factor=ratio_factor)
-    idx, valid, AtA = search(K, invK, R1, t1, xy1, oct1, ang1, desc1, free1, R2, t2, xy2, oct2,
-                             ang2, desc2, free2, level_sigma2, scale_factors)
-    good, X = gates(smallest_eigvecs(AtA), idx, valid, K, R1, t1, xy1, oct1, R2, t2, xy2, oct2,
-                    level_sigma2, scale_factors)
+    `triangulation_search`, the batched 4x4 eigensolver (`smallest_eigvecs`)
+    and `triangulation_gates`, in that order."""
+    idx, valid, AtA = triangulation_search(K, invK, R1, t1, xy1, oct1, ang1, desc1, free1, R2, t2,
+                                           xy2, oct2, ang2, desc2, free2, level_sigma2,
+                                           scale_factors)
+    good, X = triangulation_gates(smallest_eigvecs(AtA), idx, valid, K, R1, t1, xy1, oct1, R2, t2,
+                                  xy2, oct2, level_sigma2, scale_factors, ratio_factor)
     return idx, good, X
 
 

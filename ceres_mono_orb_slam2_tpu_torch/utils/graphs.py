@@ -23,17 +23,22 @@ Each call of a `CapturedFunction`:
   programs: a mapper thread then runs no map stage) and then the process's
   capture lock, with `capture_error_mode="thread_local"`, so that the eager
   work other threads issue meanwhile is not refused;
-- on later calls, replays the graph on the current stream;
+- on later calls, replays the graph on the default stream;
 - hands out clones of the outputs, since the next replay overwrites them.
+
+Every call runs on the device's default stream, the stream every thread of
+the port uses: a call under another stream raises `RuntimeError`, since the
+shared memory pool below rests on it.
 
 Owners. The tracker's programs (the frontend, the unfused pose solve, the
 batched step of `MultiStreamSLAM`) belong to the thread that tracks, owner
-"tracker". Local mapping's programs (the local-BA iterations, the two halves
-of the triangulation) and loop closing's (the essential graph's GN
-iteration) belong to the mapper thread, owner "mapper"; serially the
-caller's thread runs them. Each owner has its own side stream. Several
-threads may own "mapper" programs (a threaded `MultiStreamSLAM` runs a mapper
-thread per stream), so those warm up under the capture lock as well. One
+"tracker". Local mapping's programs (the local-BA iterations) belong to the
+mapper thread, and loop closing's (the essential graph's GN iteration, the
+global BA's LM iterations) to the mapper thread and the `gba` thread, owner
+"mapper"; serially the caller's thread runs them. Each owner has its own
+side stream. Several threads may own "mapper" programs (a threaded
+`MultiStreamSLAM` runs a mapper thread per stream), so those warm up under
+the capture lock as well. One
 capture runs at a time in the process: the caching allocator refuses to
 empty its cache while a capture is under way, and captures do not wait for
 the device. The lock order is `lock`, then the capture lock, on every
@@ -45,16 +50,18 @@ another thread invalidates a capture in progress, and the mapper thread
 then fails).
 
 The programs of one owner share one memory pool in the process (one a
-device, kept alive by a sentinel graph), across functions and systems:
-every replay runs on its caller's current stream, which is the default
-stream on every thread of the port, so no two programs ever run at once,
-and their outputs are cloned at once. A new capture then reuses what the
-earlier ones freed, so one program's static outputs may lie in another's
-intermediates: a replay and the clone of its outputs are enqueued under one
-process-wide lock, with no other thread's replay between them. The pool
-holds about one program's intermediates rather than their sum: with a pool a function, the 2.7 GB triangulation
-programs of 8 threaded streams (2000 keypoints each) exhausted an 80 GB
-H100.
+device, kept alive by a sentinel graph), across functions and systems, so
+that it holds about one program's intermediates rather than the sum over
+every function of every system (a threaded `MultiStreamSLAM` runs 8 mapper
+threads). Two rules make the sharing safe. Every replay runs on the default
+stream (checked at every call), so no two programs ever run at once. A new
+capture reuses what the earlier ones freed, so one program's static outputs
+may lie in another's intermediates: a replay and the clone of its outputs
+are enqueued under one process-wide lock, with no other thread's replay
+between them. A capture that fails raises with the first error of the
+first failed capture in the process (`capture_errors`): a failure can leave
+the pool recording, and every later capture into it then fails with a
+message of its own.
 `max_programs` bounds how many programs one function keeps (the least
 recently called goes first): local-BA windows change with every keyframe,
 so their keys rarely repeat after the solve that made them.
@@ -113,6 +120,8 @@ def stacked(tensors) -> Fill:
 
 _side_streams = {}
 _pools = {}
+# the first error of every failed capture, in order (see the module docstring)
+capture_errors: list = []
 
 # one capture at a time in the process (see the module docstring)
 _capture_lock = threading.Lock()
@@ -230,6 +239,10 @@ class CapturedFunction:
     # ------------------------------------------------------------------- call
 
     def __call__(self, *args):
+        if self.device.type == "cuda" and (torch.cuda.current_stream(self.device)
+                                           != torch.cuda.default_stream(self.device)):
+            raise RuntimeError(f"{self.name}: called on a stream other than the default stream, "
+                               "which the programs' shared memory pool requires")
         key, leaves, spec = self._key(args)
         prog = self._program(key)
         new = prog.n_calls == 0
@@ -290,13 +303,22 @@ class CapturedFunction:
         cache emptying, which another thread's work must not wait for)."""
         graph = torch.cuda.CUDAGraph()
         counted = dict(kernels.launch_counts)
-        with torch.no_grad(), torch.cuda.stream(_capture_stream(self.device, self.owner)):
-            graph.capture_begin(pool=_owner_pool(self.device, self.owner),
-                                capture_error_mode="thread_local")
-            try:
-                prog.outputs = self.fn(*static_args)
-            finally:
-                graph.capture_end()
+        try:
+            with torch.no_grad(), torch.cuda.stream(_capture_stream(self.device, self.owner)):
+                graph.capture_begin(pool=_owner_pool(self.device, self.owner),
+                                    capture_error_mode="thread_local")
+                try:
+                    prog.outputs = self.fn(*static_args)
+                finally:
+                    graph.capture_end()
+        except Exception as e:
+            first = e
+            while first.__context__ is not None:  # what failed first inside this capture
+                first = first.__context__
+            capture_errors.append(f"{self.name} (owner {self.owner}): {type(first).__name__}: "
+                                  + (str(first).splitlines() or [""])[0])
+            raise RuntimeError(f"capture of {self.name} failed; the first failed capture in this "
+                               f"process: {capture_errors[0]}") from e
         if self.owner == "tracker":
             # the capture launched nothing: its counts move to every replay
             prog.launches = {name: kernels.launch_counts[name] - n for name, n in counted.items()

@@ -613,8 +613,7 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
     log(f"[{name}] mapper: {len(lm.pass_ms)} passes, {mapping_s:.2f} s in all, mean stage ms "
         f"{ {st: round(v, 2) for st, v in stage_ms.items()} }; frames that waited for local mapping "
         f"{slam.n_keyframe_waits}, longest wait {slam.max_keyframe_wait_ms:.1f} ms; the mapper's programs "
-        f"(captures, replays, kept, dropped, shared pool MB) {program_summaries(slam)}; fuse calls "
-        f"{sum(lm.fuse_keys.values())} over {len(lm.fuse_keys)} distinct (targets, points) keys")
+        f"(captures, replays, kept, dropped, shared pool MB) {program_summaries(slam)}")
     checks = {
         "initialises within 10 frames": first < 10,
         "tracks >= 90% after init": frac >= 0.9,
@@ -2126,7 +2125,7 @@ def eager_mapper(slam):
 
     lm = LocalMapping(slam.config, slam.map, loop_closer=slam.loop_closer, device="cuda", graphs=False)
     slam.local_mapper = slam.tracker.local_mapper = slam.loop_closer.local_mapper = lm
-    slam.loop_closer._eg_step = None  # its graphs=False
+    slam.loop_closer._eg_step, slam.loop_closer._gba_steps = None, {}  # its graphs=False
     return slam
 
 
@@ -2167,12 +2166,14 @@ def graphs_loop_pair(checks: dict):
         a.keys() == b.keys() and all(np.array_equal(x, y) for k in a for x, y in zip(a[k], b[k]))
         for (_, a), (_, b) in zip(*closures))
     diff = first_pose_difference(*poses)
-    stages, stages_e = ([(round(st["essential_graph_ms"], 1), round(st["essential_graph_solve_ms"], 1), st["edges"])
+    stages, stages_e = ([(round(st["essential_graph_ms"], 1), round(st["essential_graph_solve_ms"], 1), st["edges"],
+                          round(st.get("gba_ms", float("nan")), 1))
                          for st in slam.loop_closer.loop_stats] for slam in systems)
     log(f"[graphs] geo-circle-{LOOP_FRAMES} serial: {len(eg[0])} / {len(eg[1])} essential graphs, R, t, s "
         f"equal to the bit: {same_eg}; closures at frames {[i for i, _ in closures[0]]}, keyframe poses "
         f"after each equal to the bit: {same_closures}; every frame's pose: {diff is None}"
-        f"{'' if diff is None else ' (' + diff + ')'}; essential graph ms, its device solve ms, edges: graphs "
+        f"{'' if diff is None else ' (' + diff + ')'}; essential graph ms, its device solve ms, edges, global "
+        f"BA ms: graphs "
         f"{stages}, eager mapper "
         f"{stages_e}; frame of the closure ms graphs {max(frame_ms[0]):.1f}, eager mapper "
         f"{max(frame_ms[1]):.1f}; "

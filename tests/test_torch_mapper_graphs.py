@@ -14,9 +14,9 @@ through `utils/graphs.py` on the CPU against the direct calls.
   graph's GN iteration staged the same way, against the direct calls: equal
   to the bit.
 - A `MonoSLAM` with graphs and one with `graphs=False` over the geometric
-  strafe: every keyframe pose and map point equal to the bit, the mapper's
-  programs called, the triangulation's neighbour block padded to
-  `TRI_BATCH` rows as on the card (one program per keypoint count).
+  strafe: every keyframe pose and map point equal to the bit, the local BA's
+  programs called; then the loop closer's global BA over each map, staged
+  against direct, equal to the bit.
 
 About 25 s on two threads."""
 
@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from ceres_mono_orb_slam2_tpu.ops import optim as joptim
+from ceres_mono_orb_slam2_tpu_torch.models.optimization import run_global_ba
 from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
 from ceres_mono_orb_slam2_tpu_torch.ops import optim, sim3opt
 from ceres_mono_orb_slam2_tpu_torch.utils import graphs
@@ -174,10 +175,10 @@ def test_staged_essential_graph_equals_direct():
     assert p["calls"] == 12
 
 
-def test_system_with_mapper_programs_equals_graphs_false():
+@pytest.fixture(scope="module")
+def strafe_pair():
     """The geometric strafe through a MonoSLAM with graphs (its mapper's
-    programs staged on the CPU) and one with graphs=False: every keyframe
-    pose and map point equal to the bit after the run."""
+    programs staged on the CPU) and one with graphs=False."""
     n_frames, H, W = 12, 480, 640
     cfg = SlamConfig(camera=CameraConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, fps=30.0),
                      orb=ORBConfig(n_features=600),
@@ -185,26 +186,59 @@ def test_system_with_mapper_programs_equals_graphs_false():
                                          max_ba_points=1024, max_ba_obs=4096))
     Rcw, tcw = make_geo_trajectory(n_frames, "strafe", 0.12)
     world = GeoWorld(np.random.default_rng(0), 2500, extent=10.0)
-    maps = []
+    systems = []
     for g in (True, False):
         slam = MonoSLAM(cfg, device="cpu", graphs=g)
-        slam.local_mapper._tri_padded = g  # the card's padded neighbour block
         slam.tracker.extractor = GeoExtractor(world, cfg.camera.K, Rcw, tcw, 600, H, W, px_noise=0.3,
                                               bit_noise=2, seed=5, device="cpu")
         for k in range(n_frames):
             slam.track_monocular(frame_image(k, H, W), k / 30.0)
         slam.shutdown()
-        m = slam.map
-        maps.append(({k: (kf.Rcw, kf.tcw) for k, kf in m.keyframes.items()},
-                     {i: mp.pos for i, mp in m.map_points.items()}, slam.local_mapper))
-    (kfs_g, mps_g, lm_g), (kfs_e, mps_e, lm_e) = maps
-    assert kfs_g.keys() == kfs_e.keys() and len(kfs_g) >= 3 and lm_g.n_local_ba >= 1
-    assert all(np.array_equal(a, b) for k in kfs_g for a, b in zip(kfs_g[k], kfs_e[k]))
-    assert mps_g.keys() == mps_e.keys() and all(np.array_equal(mps_g[i], mps_e[i]) for i in mps_g)
+        systems.append(slam)
+    return systems
+
+
+def _map_state(m):
+    return ({k: (kf.Rcw, kf.tcw) for k, kf in m.keyframes.items()},
+            {i: mp.pos for i, mp in m.map_points.items()})
+
+
+def _same_map(a, b) -> bool:
+    (kfs_a, mps_a), (kfs_b, mps_b) = _map_state(a), _map_state(b)
+    return (kfs_a.keys() == kfs_b.keys()
+            and all(np.array_equal(x, y) for k in kfs_a for x, y in zip(kfs_a[k], kfs_b[k]))
+            and mps_a.keys() == mps_b.keys() and all(np.array_equal(mps_a[i], mps_b[i]) for i in mps_a))
+
+
+def test_system_with_mapper_programs_equals_graphs_false(strafe_pair):
+    """Every keyframe pose and map point equal to the bit after the run; the
+    local BA's programs called, the triangulation and the fuse eager in
+    both."""
+    slam_g, slam_e = strafe_pair
+    lm_g, lm_e = slam_g.local_mapper, slam_e.local_mapper
+    assert len(slam_g.map.keyframes) >= 3 and lm_g.n_local_ba >= 1
+    assert _same_map(slam_g.map, slam_e.map)
     calls = collections.Counter()
     for p in lm_g.programs():
         calls[p["name"]] += p["calls"]
-    assert calls["triangulation_search"] >= 1 and calls["lba_lm_robust"] >= 5
-    assert lm_e.programs() == [] and sum(lm_g.fuse_keys.values()) >= 2
-    searches = [p for p in lm_g.programs() if p["name"] == "triangulation_search"]
-    assert len(searches) == 1 and searches[0]["shapes"][9] == [lm_g.TRI_BATCH, 3, 3]
+    assert set(calls) == {"lba_lm_robust", "lba_lm_trimmed"} and calls["lba_lm_robust"] >= 5
+    assert lm_e.programs() == []
+
+
+def test_staged_global_ba_equals_direct(strafe_pair):
+    """The loop closer's global BA (`run_global_ba`, two chunks of 10) over
+    each system's map, its LM iterations staged through `CapturedFunction`s
+    as `LoopClosing` passes them, against the direct calls: every keyframe
+    pose and map point equal to the bit, one program called 20 times."""
+    slam_g, slam_e = strafe_pair
+    assert _same_map(slam_g.map, slam_e.map)
+    steps = {f"{kind}_step": graphs.CapturedFunction(fn, "cpu", name=f"gba_lm_{kind}", owner="mapper",
+                                                     max_programs=1)
+             for kind, fn in (("robust", optim.lm_iteration_robust),
+                              ("trimmed", optim.lm_iteration_trimmed))}
+    loop_id = max(slam_g.map.keyframes)
+    assert run_global_ba(slam_g.map, slam_g.config, loop_id, n_iters=20, device="cpu", **steps)
+    assert run_global_ba(slam_e.map, slam_e.config, loop_id, n_iters=20, device="cpu")
+    assert _same_map(slam_g.map, slam_e.map)
+    (p,) = steps["robust_step"].report()
+    assert p["calls"] == 20 and steps["trimmed_step"].report() == []

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from ceres_mono_orb_slam2_tpu.utils.synthetic import make_sequence
-from ceres_mono_orb_slam2_tpu_torch.models import localmapping
+from ceres_mono_orb_slam2_tpu_torch.models import localmapping, system
 from ceres_mono_orb_slam2_tpu_torch.models.frame import Frame
 from ceres_mono_orb_slam2_tpu_torch.models.map import KeyFrame, Map
 from ceres_mono_orb_slam2_tpu_torch.models.optimization import run_global_ba
@@ -408,7 +408,7 @@ def test_keyframe_wait_ends_at_local_mapping_idle_during_a_closure(monkeypatch):
 
 def test_keyframe_wait_past_its_timeout_raises(monkeypatch):
     """A keyframe wait that local mapping does not end within
-    `keyframe_wait_timeout_s` raises and names the stage it waited for."""
+    `JOIN_TIMEOUT_S` raises and names the stage it waited for."""
     slam = MonoSLAM(_config(600), device="cpu", threaded=True)
     entered, release = threading.Event(), threading.Event()
 
@@ -417,7 +417,7 @@ def test_keyframe_wait_past_its_timeout_raises(monkeypatch):
         release.wait(TIMEOUT_S)
 
     monkeypatch.setattr(slam.local_mapper, "process_queue", stuck_drain)
-    slam.keyframe_wait_timeout_s = 0.2
+    monkeypatch.setattr(system, "JOIN_TIMEOUT_S", 0.2)
     try:
         slam._wake_mapper()
         assert entered.wait(10.0)  # the drain runs: local mapping is busy
@@ -426,6 +426,7 @@ def test_keyframe_wait_past_its_timeout_raises(monkeypatch):
         assert not th.is_alive() and len(raised) == 1 and "local mapping" in str(raised[0])
     finally:
         release.set()
+        monkeypatch.undo()  # shutdown joins the mapper within the real timeout
         slam.shutdown()
 
 

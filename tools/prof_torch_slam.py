@@ -147,7 +147,7 @@ def profile_streams(args, h: int, w: int) -> int:
     def batch_frame(system, i):
         t0 = time.perf_counter()
         system.track_batch([q.images[i] for q in seqs], [float(q.timestamps[i]) for q in seqs])
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()  # a device-wide sync would break a mapper capture
         return (time.perf_counter() - t0) * 1e3
 
     def fresh():
@@ -285,7 +285,7 @@ def profile_concurrent(args, seq, voc, h: int, w: int) -> int:
         for i in range(args.warmup):
             slam.track_monocular(seq.images[i], float(seq.timestamps[i]))
         slam.wait_mapper_idle(timeout=600.0)
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()  # a device-wide sync would break a mapper capture
         slam.local_mapper.pass_ms.clear()
         return slam
 
@@ -300,7 +300,7 @@ def profile_concurrent(args, seq, voc, h: int, w: int) -> int:
             ms.append((time.perf_counter() - t) * 1e3)
         slam.flush_pipeline()
         slam.wait_mapper_idle(timeout=600.0)
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()  # a device-wide sync would break a mapper capture
         return np.asarray(ms), (time.perf_counter() - t0) * 1e3
 
     # pass 1: wall clock, no profiler
