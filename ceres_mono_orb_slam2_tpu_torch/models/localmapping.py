@@ -80,6 +80,7 @@ class LocalMapping:
         self.graphs = bool(graphs)
         self._lm_robust = self._program(optim.lm_iteration_robust, "lba_lm_robust", self.BA_PROGRAMS)
         self._lm_trimmed = self._program(optim.lm_iteration_trimmed, "lba_lm_trimmed", self.BA_PROGRAMS)
+        self._lm_cg = self._program(optim.cg_lm_iteration, "lba_lm_cg", self.BA_PROGRAMS)
 
     def _dev(self, a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
@@ -92,7 +93,7 @@ class LocalMapping:
 
     def captured(self) -> list:
         """The `CapturedFunction`s of local mapping (none without graphs)."""
-        fns = (self._lm_robust, self._lm_trimmed)
+        fns = (self._lm_robust, self._lm_trimmed, self._lm_cg)
         return [f for f in fns if isinstance(f, graphs_mod.CapturedFunction)]
 
     def programs(self) -> list:
@@ -461,13 +462,13 @@ class LocalMapping:
         if P * M > DENSE_BA_MAX_BLOCKS:
             # past the dense Schur's (M, P, 6, 3) budget the matrix-free CG
             # solver takes over (as in the JAX package), so a large window in
-            # a densely covisible revisited area cannot exhaust memory; it
-            # runs eagerly
-            res = optim.bundle_adjustment_cg(self.jK, d(R), d(t), d(pts), *args,
-                                             iters=8, cg_iters=50, robust=True)
+            # a densely covisible revisited area cannot exhaust memory; each
+            # LM iteration a replay of the window's program, in both calls
+            res = optim.bundle_adjustment_cg(self.jK, d(R), d(t), d(pts), *args, iters=8,
+                                             step=self._lm_cg)
             if not self.abort_ba:
                 res = optim.bundle_adjustment_cg(self.jK, res.R, res.t, res.points, *args,
-                                                 iters=7, cg_iters=50, robust=True)
+                                                 iters=7, step=self._lm_cg)
             else:
                 self.n_ba_aborted += 1
         else:

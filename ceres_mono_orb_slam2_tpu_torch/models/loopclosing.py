@@ -18,9 +18,12 @@ Here it is a pipeline stage driven by the System facade: after each frame
 before it corrects. Matching, RANSAC and the optimizers run on the device at
 the actual problem sizes; the Sim(3) RANSAC draws come from `uniform_noise`,
 which tests replace to inject draws. With `graphs=True` (the default) each
-GN iteration of the essential graph and each LM iteration of the dense
-global BA replay a captured program (`utils/graphs.py`), the JAX package's
-jitted solves; `graphs=False` runs them op by op.
+GN iteration of the essential graph and each LM iteration of the global BA
+(dense or CG) replay a captured program (`utils/graphs.py`), the JAX
+package's jitted solves; `graphs=False` runs them op by op. The Sim(3)
+refinement of a candidate runs op by op at its actual match count either
+way: a run makes few refinements, each at its own count, so a program a
+count would be captured and seldom replayed.
 """
 
 from __future__ import annotations
@@ -89,11 +92,11 @@ class LoopClosing:
         # per closed loop: stage milliseconds and problem sizes
         self.loop_stats: List[dict] = []
         self._sim3_ms = self._eg_solve_ms = 0.0
-        # the essential graph's GN iteration (its PCG included): a captured
-        # program per (P, E), replayed for every iteration of the solve
-        # (utils/graphs.py, owner "mapper"), or the same function eagerly
-        # and the dense global BA's LM iterations: a program per map shape,
-        # replayed by every chunk of the solve
+        # captured programs (utils/graphs.py, owner "mapper"), or the same
+        # functions eagerly: the essential graph's GN iteration (its PCG
+        # included) per (P, E), replayed for every iteration of the solve;
+        # the global BA's LM iterations (dense or CG) per map shape, replayed
+        # by every chunk
         self._eg_step = None
         self._gba_steps = {}
         if graphs:
@@ -104,7 +107,8 @@ class LoopClosing:
                 f"{kind}_step": graphs_mod.CapturedFunction(
                     fn, self.device, name=f"gba_lm_{kind}", owner="mapper", max_programs=1)
                 for kind, fn in (("robust", optim.lm_iteration_robust),
-                                 ("trimmed", optim.lm_iteration_trimmed))}
+                                 ("trimmed", optim.lm_iteration_trimmed),
+                                 ("cg", optim.cg_lm_iteration))}
 
     def captured(self) -> list:
         """The `CapturedFunction`s of loop closing (none without graphs)."""

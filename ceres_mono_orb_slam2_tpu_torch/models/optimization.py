@@ -66,7 +66,7 @@ def _whole_map_problem(m, config, device):
 def run_global_ba(m, config, loop_kf_id: int, n_iters: int = 50, stop_cb=None,
                   chunk: int = 10, robust: bool = True, force_cg: bool = False,
                   device=DEFAULT_DEVICE, stats: dict = None, robust_step=None,
-                  trimmed_step=None):
+                  trimmed_step=None, cg_step=None):
     """Reference RunGlobalBundleAdjustment (LoopClosing.cc:646-739): global BA
     over a snapshot of the map with cooperative abort, side-field results,
     then spanning-tree propagation to keyframes and map points created while
@@ -82,8 +82,9 @@ def run_global_ba(m, config, loop_kf_id: int, n_iters: int = 50, stop_cb=None,
     with `force_cg`, the matrix-free CG solver replaces the dense Schur one.
     `stats`, when given, receives P, M, O and the solver taken.
     `robust_step` / `trimmed_step` run one iteration of the dense solver
-    (`optim.bundle_adjustment`'s; `LoopClosing` passes captured programs,
-    which every chunk replays).
+    (`optim.bundle_adjustment`'s) and `cg_step` one of the robust CG solver
+    (`optim.cg_lm_iteration`); `LoopClosing` passes captured programs,
+    which every chunk replays.
 
     Returns True if the solve completed and was applied."""
     device = resolve_device(device)
@@ -102,7 +103,8 @@ def run_global_ba(m, config, loop_kf_id: int, n_iters: int = 50, stop_cb=None,
         it = min(chunk, n_iters - done)
         if use_cg:
             res = optim.bundle_adjustment_cg(K, R, t, pts, op, oj, ouv, ow, ovalid, jfixed, pvalid,
-                                             iters=it, cg_iters=50, robust=robust)
+                                             iters=it, cg_iters=optim.CG_ITERS, robust=robust,
+                                             step=cg_step if robust else None)
         else:
             res = optim.bundle_adjustment(K, R, t, pts, op, oj, ouv, ow, ovalid, jfixed, pvalid,
                                           iters_huber=it if robust else 0,

@@ -37,8 +37,14 @@ last-frame block and the chained prediction from the previous frame's
 outputs. The local-map block is gathered from the pool into the program's
 static buffers before the replay, so no capture reads the pool. The
 unfused pose solves (reference keyframe, relocalization, localization mode)
-replay a captured `pose_optimization` per shape. `graphs=False` calls the
-same functions directly, as `jax.disable_jit` does.
+replay a captured `pose_optimization` per shape. A non-fused frame's
+extraction (initialization, reference-keyframe, relocalization and
+localization frames; JAX: the jitted extractor) replays a program per
+(H, W, N) with both kernels inside, and relocalization's RANSAC, padded to
+`RELOC_MAX_CANDIDATES` candidates as in the JAX tracker, replays its four
+stages around the three host-checked linear-algebra calls (`ops/pnp.py`).
+`graphs=False` calls the same functions directly, as `jax.disable_jit`
+does.
 """
 
 from __future__ import annotations
@@ -135,7 +141,9 @@ class Tracking:
         # calls the functions directly
         self.graphs = bool(graphs)
         self._frontend = None
+        self._extraction = None
         self._pose_solver = None
+        self._ransac = None
         self._consts = {}
 
         # pipelined mode: the in-flight frame (its device outputs, started
@@ -178,9 +186,24 @@ class Tracking:
 
     def build_frame(self, image: np.ndarray, timestamp: float) -> Frame:
         self._ensure_bounds(image)
-        feats = self.extractor.extract(image)
+        feats = self._extract(image)
         feats = type(feats)(*(a[0] for a in feats))
         return Frame(feats, self.cam, timestamp, frame_id=next(self._frame_seq))
+
+    def _extract(self, image: np.ndarray):
+        """A non-fused frame's features: the extraction program of this
+        extractor (JAX: the jitted extractor), or the extractor called
+        directly without graphs or for a non-image extractor such as
+        `utils/geosim.GeoExtractor`."""
+        ex = self.extractor
+        if not (self.graphs and isinstance(ex, ORBExtractor)):
+            return ex.extract(image)
+        if self._extraction is None or self._extraction[0] is not ex:
+            # the capture takes the map lock as the frontend's does (an
+            # RLock: a frame tracked again under it extracts too)
+            self._extraction = (ex, graphs_mod.CapturedFunction(
+                ex.extract, self.device, name="extract", lock=lambda m=self.map: m.update_lock))
+        return self._extraction[1](self._host(image))
 
     def _ensure_bounds(self, image):
         if self.bounds is None:
@@ -450,11 +473,26 @@ class Tracking:
         return optim.PoseOptResult(*self._pose_solver(
             K, *(self._host(a) for a in (R, t, pos)), und, self._host(w), self._host(ok)))
 
+    def _ransac_stages(self) -> pnp.RansacStages:
+        """Relocalization's RANSAC stages: a program of each (made once),
+        or the stage functions without graphs."""
+        if not self.graphs:
+            return pnp.RansacStages()
+        if self._ransac is None:
+            self._ransac = pnp.RansacStages(*(
+                graphs_mod.CapturedFunction(fn, self.device, name=f"ransac_{name}",
+                                            lock=lambda m=self.map: m.update_lock)
+                for name, fn in zip(pnp.RansacStages._fields, pnp.RansacStages())))
+        return self._ransac
+
+    def captured(self) -> list:
+        """This tracker's `CapturedFunction`s (none without graphs)."""
+        owned = [p[1] for p in (self._frontend, self._extraction) if p]
+        return owned + ([self._pose_solver] if self._pose_solver else []) + list(self._ransac or ())
+
     def programs(self) -> list:
         """`CapturedFunction.report()` of this tracker's programs."""
-        fns = ([self._frontend[1]] if self._frontend else []) + (
-            [self._pose_solver] if self._pose_solver else [])
-        return [r for f in fns for r in f.report()]
+        return [r for f in self.captured() for r in f.report()]
 
     def _fused_consume(self, aux, out, feats, host):
         """Host phase 2 of the fused path: association bookkeeping, stats,
@@ -1255,12 +1293,20 @@ class Tracking:
         built = built[:RELOC_MAX_CANDIDATES]
         C = len(built)
         w = self.inv_sigma2[f.kp_octave].astype(np.float32)
+        # one shape a frame size, as the JAX tracker's: the candidates padded
+        # to RELOC_MAX_CANDIDATES with rows that hold no valid point; the
+        # draws are made at the actual count, then padded
+        Cb = RELOC_MAX_CANDIDATES
         noise = torch.as_tensor(self.uniform_noise((C, RELOC_HYPOTHESES, n)), device=self.device)
+        noise = torch.cat([noise, noise.new_zeros((Cb - C, RELOC_HYPOTHESES, n))])
+        pos_b = np.zeros((Cb, n, 3), np.float32)
+        ok_b = np.zeros((Cb, n), bool)
+        for ci, (_, pos, ok, _) in enumerate(built):
+            pos_b[ci], ok_b[ci] = pos, ok
         res = pnp.ransac_pnp_multi(
-            noise, self.jK, self._dev(np.stack([b[1] for b in built])),
-            f.j_und[None].expand(C, n, 2), self._dev(w)[None].expand(C, n),
-            self._dev(np.stack([b[2] for b in built])))
-        succ, Rs, ts, inls, ns = (a.cpu().numpy() for a in res)
+            noise, self.jK, self._dev(pos_b), f.j_und[None].expand(Cb, n, 2),
+            self._dev(w)[None].expand(Cb, n), self._dev(ok_b), stages=self._ransac_stages())
+        succ, Rs, ts, inls, ns = (a.cpu().numpy()[:C] for a in res)
         for ci in np.argsort(-ns, kind="stable"):
             if not succ[ci]:
                 continue

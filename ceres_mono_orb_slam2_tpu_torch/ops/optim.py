@@ -576,10 +576,140 @@ def pcg(matvec, precond, b, iters: int):
     return x
 
 
+class CGProblem(NamedTuple):
+    """What stays fixed through a `bundle_adjustment_cg` solve: the
+    observations, the gauge and the per-pose and per-point segment-sum
+    index blocks (no pair block: the Schur products run observation-wise).
+    Tensors only, so that one LM iteration is a function of tensors
+    (`cg_lm_iteration`, captured per shape by `utils/graphs.py`)."""
+    K: torch.Tensor  # (3, 3)
+    obs_pose: torch.Tensor  # (O,) int64
+    obs_point: torch.Tensor  # (O,) int64
+    obs_uv: torch.Tensor  # (O, 2)
+    obs_inv_sigma2: torch.Tensor  # (O,)
+    obs_valid: torch.Tensor  # (O,) bool
+    point_valid: torch.Tensor  # (M,) bool
+    free6: torch.Tensor  # (P, 1) bool: the poses that move
+    by_pose: torch.Tensor  # SegmentSum index blocks: per pose, per point
+    by_point: torch.Tensor
+    eye3: torch.Tensor  # the damping's identities
+    eye6: torch.Tensor
+
+
+class CGState(NamedTuple):
+    """The carry of `bundle_adjustment_cg`'s LM loop."""
+    R: torch.Tensor
+    t: torch.Tensor
+    points: torch.Tensor
+    lam: torch.Tensor
+    cost: torch.Tensor
+
+
+def cg_problem(K, obs_pose, obs_point, obs_uv, obs_inv_sigma2, obs_valid, fixed_pose,
+               point_valid) -> CGProblem:
+    """The `CGProblem` of P = len(fixed_pose) poses and M = len(point_valid)
+    points (two host reads: the segment widths)."""
+    op, oj = obs_pose.long(), obs_point.long()
+    eye = torch.eye(6, dtype=obs_uv.dtype, device=obs_uv.device)
+    return CGProblem(K, op, oj, obs_uv, obs_inv_sigma2, obs_valid, point_valid,
+                     (~fixed_pose)[:, None], SegmentSum(op, fixed_pose.shape[0]).index,
+                     SegmentSum(oj, point_valid.shape[0]).index, eye[:3, :3].contiguous(), eye)
+
+
+def _cg_chi2(prob: CGProblem, Rp, tp, pts):
+    op, oj = prob.obs_pose, prob.obs_point
+    Xc = (Rp[op] @ pts[oj][..., None])[..., 0] + tp[op]
+    r = prob.obs_uv - _project(prob.K, Xc)
+    s = prob.obs_inv_sigma2 * (r * r).sum(-1)
+    return torch.where(Xc[..., 2] <= 1e-6, torch.full_like(s, 1e6), s), r, Xc
+
+
+def _cg_cost(prob: CGProblem, Rp, tp, pts, robust: bool, delta: float, allsum):
+    s, _, _ = _cg_chi2(prob, Rp, tp, pts)
+    c = huber_cost(s, delta) if robust else s
+    return allsum(torch.where(prob.obs_valid, c, torch.zeros_like(c)).sum())
+
+
+def _cg_iteration(state: CGState, prob: CGProblem, robust: bool, delta: float, cg_iters: int,
+                  allsum) -> CGState:
+    """One LM iteration of `bundle_adjustment_cg`, its `cg_iters` PCG
+    iterations included."""
+    Rp, tp, pts, lam, cost = state
+    op, oj, free6, eye3, eye6 = prob.obs_pose, prob.obs_point, prob.free6, prob.eye3, prob.eye6
+
+    def by_pose(v):
+        return allsum(segment_sum(prob.by_pose, v))
+
+    def by_point(v):
+        return allsum(segment_sum(prob.by_point, v))
+
+    s, r, Xc = _cg_chi2(prob, Rp, tp, pts)
+    w = prob.obs_inv_sigma2 * (huber_weight(s, delta) if robust else 1.0)
+    w = torch.where(prob.obs_valid & (Xc[..., 2] > 1e-6), w, torch.zeros_like(w))
+    Jp = _proj_jacobian(prob.K, Xc)  # (O, 2, 3)
+    A = _pose_jacobian(Jp, Xc)  # (O, 2, 6)
+    B = -(Jp @ Rp[op])  # (O, 2, 3)
+    wA = w[:, None, None] * A
+    wB = w[:, None, None] * B
+    Hpp = by_pose(torch.einsum("oik,oil->okl", wA, A))
+    Hll = by_point(torch.einsum("oik,oil->okl", wB, B))
+    bp = by_pose(-torch.einsum("oik,oi->ok", wA, r))
+    bl = by_point(-torch.einsum("oik,oi->ok", wB, r))
+    Hll_d = Hll + lam * (Hll * eye3) + 1e-6 * eye3
+    Hpp_d = Hpp + lam * (Hpp * eye6) + 1e-6 * eye6
+    Hll_inv = torch.where(prob.point_valid[:, None, None], _inv3x3(Hll_d),
+                          torch.zeros_like(Hll_d))
+
+    def WT_v(v):  # (P, 6) -> (M, 3): sum_o B^T w A v[p_o]
+        u = torch.einsum("oik,ok->oi", wA, v[op])  # (O, 2)
+        return by_point(torch.einsum("oik,oi->ok", B, u))
+
+    def W_x(x):  # (M, 3) -> (P, 6)
+        u = torch.einsum("oik,ok->oi", wB, x[oj])
+        return by_pose(torch.einsum("oik,oi->ok", A, u))
+
+    def S_v(v):  # implicit Schur matvec; fixed poses pinned to identity
+        v0 = torch.where(free6, v, torch.zeros_like(v))
+        out = torch.einsum("pij,pj->pi", Hpp_d, v0) - W_x(
+            torch.einsum("mij,mj->mi", Hll_inv, WT_v(v0)))
+        return torch.where(free6, out, v)
+
+    def precond(x):  # block-Jacobi: a 6x6 solve per pose
+        return torch.where(free6, _solve6_spd(Hpp_d, x), x)
+
+    rhs = bp - W_x(torch.einsum("mij,mj->mi", Hll_inv, bl))
+    rhs = torch.where(free6, rhs, torch.zeros_like(rhs))
+    dp = pcg(S_v, precond, rhs, cg_iters)
+    dp = torch.where(free6, dp, torch.zeros_like(dp))
+    dl = torch.einsum("mij,mj->mi", Hll_inv, bl - WT_v(dp))
+    dl = torch.where(prob.point_valid[:, None], dl, torch.zeros_like(dl))
+
+    dRp, dtp = lie.se3_exp(dp)
+    R_new = lie.so3_project(dRp @ Rp)
+    t_new = (dRp @ tp[..., None])[..., 0] + dtp
+    pts_new = pts + dl
+    new_cost = _cg_cost(prob, R_new, t_new, pts_new, robust, delta, allsum)
+    accept = new_cost < cost
+    return CGState(R=torch.where(accept, R_new, Rp), t=torch.where(accept, t_new, tp),
+                   points=torch.where(accept, pts_new, pts),
+                   lam=torch.where(accept, (lam * 0.33).clamp_min(1e-7), (lam * 5.0).clamp_max(1e6)),
+                   cost=torch.where(accept, new_cost, cost))
+
+
+CG_ITERS = 50  # PCG iterations of an LM iteration of the global and the local BA
+
+
+def cg_lm_iteration(state: CGState, prob: CGProblem) -> CGState:
+    """One LM iteration of the single-process, Huber-robust
+    `bundle_adjustment_cg` with `CG_ITERS` PCG iterations (tensors in and
+    out: the function `LoopClosing` and `LocalMapping` capture per shape)."""
+    return _cg_iteration(state, prob, True, math.sqrt(CHI2_MONO), CG_ITERS, group_sum(None))
+
+
 def bundle_adjustment_cg(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigma2,
                          obs_valid, fixed_pose, point_valid, iters: int = 20,
-                         cg_iters: int = 50, chi2_th: float = CHI2_MONO,
-                         robust: bool = True, group=None) -> BAResult:
+                         cg_iters: int = CG_ITERS, chi2_th: float = CHI2_MONO,
+                         robust: bool = True, group=None, step=None) -> BAResult:
     """Bundle adjustment at any map size: LM with the point block eliminated
     implicitly. `bundle_adjustment` materializes the (M, P, 6, 3) pose-point
     cross tensor, which suits local windows and is O(M P) memory for global
@@ -591,93 +721,29 @@ def bundle_adjustment_cg(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_s
 
     A fixed `iters` x `cg_iters` loop with accept/reject as `torch.where`
     masks: no host read inside the solve. The per-pose and per-point sums use
-    `SegmentSum`s built once per call, so two calls give the same bits.
+    `SegmentSum` index blocks built once per call (`cg_problem`), so two
+    calls give the same bits.
 
     With a torch.distributed `group` (the JAX package's `axis_name`), each
     rank holds a block of the observations: every O-axis sum (the cost;
     Hpp, Hll, bp, bl; the Schur matvec halves) is this rank's segment sum
     followed by an all_reduce over the group, and poses and points stay
-    replicated (parallel/sharded_ba.bundle_adjustment_cg_sharded)."""
-    P = R.shape[0]
-    M = points.shape[0]
-    dev, dt = R.device, R.dtype
+    replicated (parallel/sharded_ba.bundle_adjustment_cg_sharded).
+
+    `step(state, problem)` runs one LM iteration (by default `_cg_iteration`
+    of `robust`, `chi2_th`, `cg_iters` and the group's sum; `LoopClosing`
+    and `LocalMapping` pass a captured `cg_lm_iteration` without a group)."""
     delta = math.sqrt(chi2_th)
-    free6 = (~fixed_pose)[:, None]
-    eye3 = torch.eye(3, dtype=dt, device=dev)
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    op = obs_pose.long()
-    oj = obs_point.long()
-    by_pose, by_point = SegmentSum(op, P), SegmentSum(oj, M)
     allsum = group_sum(group)
-
-    def chi2_of(Rp, tp, pts):
-        Xc = (Rp[op] @ pts[oj][..., None])[..., 0] + tp[op]
-        r = obs_uv - _project(K, Xc)
-        s = obs_inv_sigma2 * (r * r).sum(-1)
-        return torch.where(Xc[..., 2] <= 1e-6, torch.full_like(s, 1e6), s), r, Xc
-
-    def total_cost(Rp, tp, pts):
-        s, _, _ = chi2_of(Rp, tp, pts)
-        c = huber_cost(s, delta) if robust else s
-        return allsum(torch.where(obs_valid, c, torch.zeros_like(c)).sum())
-
-    Rp, tp, pts = R, t, points
-    cost = total_cost(Rp, tp, pts)
-    lam = torch.tensor(1e-4, dtype=dt, device=dev)
+    prob = cg_problem(K, obs_pose, obs_point, obs_uv, obs_inv_sigma2, obs_valid, fixed_pose,
+                      point_valid)
+    step = step or partial(_cg_iteration, robust=robust, delta=delta, cg_iters=cg_iters,
+                           allsum=allsum)
+    state = CGState(R, t, points, torch.tensor(1e-4, dtype=R.dtype, device=R.device),
+                    _cg_cost(prob, R, t, points, robust, delta, allsum))
     for _ in range(iters):
-        s, r, Xc = chi2_of(Rp, tp, pts)
-        w = obs_inv_sigma2 * (huber_weight(s, delta) if robust else 1.0)
-        w = torch.where(obs_valid & (Xc[..., 2] > 1e-6), w, torch.zeros_like(w))
-        Jp = _proj_jacobian(K, Xc)  # (O, 2, 3)
-        A = _pose_jacobian(Jp, Xc)  # (O, 2, 6)
-        B = -(Jp @ Rp[op])  # (O, 2, 3)
-        wA = w[:, None, None] * A
-        wB = w[:, None, None] * B
-        Hpp = allsum(by_pose(torch.einsum("oik,oil->okl", wA, A)))
-        Hll = allsum(by_point(torch.einsum("oik,oil->okl", wB, B)))
-        bp = allsum(by_pose(-torch.einsum("oik,oi->ok", wA, r)))
-        bl = allsum(by_point(-torch.einsum("oik,oi->ok", wB, r)))
-        Hll_d = Hll + lam * (Hll * eye3) + 1e-6 * eye3
-        Hpp_d = Hpp + lam * (Hpp * eye6) + 1e-6 * eye6
-        Hll_inv = torch.where(point_valid[:, None, None], _inv3x3(Hll_d),
-                              torch.zeros_like(Hll_d))
-
-        def WT_v(v):  # (P, 6) -> (M, 3): sum_o B^T w A v[p_o]
-            u = torch.einsum("oik,ok->oi", wA, v[op])  # (O, 2)
-            return allsum(by_point(torch.einsum("oik,oi->ok", B, u)))
-
-        def W_x(x):  # (M, 3) -> (P, 6)
-            u = torch.einsum("oik,ok->oi", wB, x[oj])
-            return allsum(by_pose(torch.einsum("oik,oi->ok", A, u)))
-
-        def S_v(v):  # implicit Schur matvec; fixed poses pinned to identity
-            v0 = torch.where(free6, v, torch.zeros_like(v))
-            out = torch.einsum("pij,pj->pi", Hpp_d, v0) - W_x(
-                torch.einsum("mij,mj->mi", Hll_inv, WT_v(v0)))
-            return torch.where(free6, out, v)
-
-        def precond(x):  # block-Jacobi: a 6x6 solve per pose
-            return torch.where(free6, _solve6_spd(Hpp_d, x), x)
-
-        rhs = bp - W_x(torch.einsum("mij,mj->mi", Hll_inv, bl))
-        rhs = torch.where(free6, rhs, torch.zeros_like(rhs))
-        dp = pcg(S_v, precond, rhs, cg_iters)
-        dp = torch.where(free6, dp, torch.zeros_like(dp))
-        dl = torch.einsum("mij,mj->mi", Hll_inv, bl - WT_v(dp))
-        dl = torch.where(point_valid[:, None], dl, torch.zeros_like(dl))
-
-        dRp, dtp = lie.se3_exp(dp)
-        R_new = lie.so3_project(dRp @ Rp)
-        t_new = (dRp @ tp[..., None])[..., 0] + dtp
-        pts_new = pts + dl
-        new_cost = total_cost(R_new, t_new, pts_new)
-        accept = new_cost < cost
-        Rp = torch.where(accept, R_new, Rp)
-        tp = torch.where(accept, t_new, tp)
-        pts = torch.where(accept, pts_new, pts)
-        lam = torch.where(accept, (lam * 0.33).clamp_min(1e-7), (lam * 5.0).clamp_max(1e6))
-        cost = torch.where(accept, new_cost, cost)
-    R2 = lie.so3_project(Rp)
-    s_final, _, Xc2 = chi2_of(R2, tp, pts)
+        state = step(state, prob)
+    R2 = lie.so3_project(state.R)
+    s_final, _, Xc2 = _cg_chi2(prob, R2, state.t, state.points)
     inlier_obs = obs_valid & (s_final <= chi2_th) & (Xc2[..., 2] > 1e-6)
-    return BAResult(R=R2, t=tp, points=pts, inlier_obs=inlier_obs, cost=cost)
+    return BAResult(R=R2, t=state.t, points=state.points, inlier_obs=inlier_obs, cost=state.cost)

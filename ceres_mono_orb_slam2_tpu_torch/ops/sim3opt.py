@@ -103,7 +103,8 @@ def optimize_sim3(
              + torch.einsum("nik,n,nil->kl", J2, w2, J2))
         g = -(torch.einsum("nik,n,ni->k", J1, w1, r1) + torch.einsum("nik,n,ni->k", J2, w2, r2))
         Hd = H + lam * torch.diag_embed(torch.diagonal(H)) + 1e-8 * eye7
-        dx = torch.linalg.solve(Hd, g)
+        # solve_ex: the bits of solve without its host check of `info`
+        dx = torch.linalg.solve_ex(Hd, g)[0]
         # clamp the scale increment (Sim3Parameterization guards the scale
         # from collapsing)
         dx = torch.cat([dx[:6], dx[6:].clamp(-2.0, 2.0)])

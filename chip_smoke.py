@@ -27,7 +27,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      pose equal to the bit on the spiral's first 16 frames serial and
      pipelined, on 16 frames of the geometric strafe pipelined (it chains),
      on [reloc]'s frames 0-52 and a blinded tracker's relocalization (the
-     captured pose solve) with its fused frame at th_local 5.0; one S=8
+     captured pose solve) with its fused frame at th_local 5.0, and there
+     every non-fused frame's features (the extraction program), BoW word
+     ids and RANSAC result (its four stage programs); one S=8
      `make_multistream_step`; the median frame of both; one fused frame of
      each under torch.profiler: its host API launches (`cudaLaunchKernel`,
      `cudaGraphLaunch`) and copies, and its kernels on the card against the
@@ -49,7 +51,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      Sim(3) RANSAC and refinement, the essential graph on a drifted ring of
      200 poses, and the matrix-free CG bundle adjustment (against the dense
      solver, and twice for bit-identical results), each on a seeded problem
-     with a known answer;
+     with a known answer; a non-fused frame's extraction
+     (`Tracking.build_frame`), the RANSAC stages and the CG BA's LM
+     iterations replayed as the system replays them, equal to their eager
+     calls to the bit, each kernel counted once per extraction; RANSAC at 1
+     and 3 live candidates padded to 8 as the tracker pads them, against
+     the live candidates alone (equal success, inliers and counts, R and t
+     within 1e-6);
   7. `[reloc]`: `MonoSLAM` with a trained vocabulary over 56 rendered
      640x480 frames of the ring world with frames 44-46 blacked out: LOST,
      then relocalized from pixels without a reset, one launch of each
@@ -80,7 +88,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      the mapped area): exit code 0, state OK, the four output files parsed,
      ATE of FrameTrajectory.txt under 1% (run 1) and 2% (run 2), run 2's
      first frame relocalized, every frame tracked, no keyframe added, one
-     launch of each kernel per extraction; the native decoder bit-exact
+     launch of each kernel per extraction; the host API launches of one
+     localization frame, one fused frame and one relocalizing frame against
+     the saved map with graphs and with graphs=False, a localization frame's extraction one
+     replay of its program; the native decoder bit-exact
      against the plain one on the PNGs; `python -m ...cli --help` in a
      subprocess;
  12. `[viewer]`: the viewers as a user runs them, on [cli]'s strafe world
@@ -102,7 +113,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      100,000 points, 600,000 observations over a 4-way `obs` axis, 20 LM x
      50 CG) twice, bit-identical, its Huber cost below 0.1x the initial,
      within 1e-3 of the single-process solve on this card and its inliers
-     within 0.1%; `optimize_essential_graph_sharded` on a drifted ring of
+     within 0.1%; that single-process solve with its LM iterations
+     replayed as the loop closer's CG global BA replays them, equal to the
+     eager solve to the bit; `optimize_essential_graph_sharded` on a drifted ring of
      1000 poses against the single-process solve (R 5e-4, t 5e-3, s 1e-3),
      the ring closing; `shard_step_over_mesh` on a (2, 2) mesh over
      [multistream]'s inputs against the single-process S=8 step (counts
@@ -738,6 +751,7 @@ def solver_pnp(seed: int = 0, C: int = 8, N: int = 2000, NH: int = 256):
     """ransac_pnp_multi: C candidates x N points; candidate 2 holds the true
     3D points for 40% of its matches, the others hold unrelated points."""
     from ceres_mono_orb_slam2_tpu_torch.ops import pnp
+    from ceres_mono_orb_slam2_tpu_torch.utils import graphs
 
     rng = np.random.default_rng(seed)
     K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1]], np.float32)
@@ -756,16 +770,81 @@ def solver_pnp(seed: int = 0, C: int = 8, N: int = 2000, NH: int = 256):
     run = lambda: pnp.ransac_pnp_multi(noise, *args)  # noqa: E731
     run()
     res, ms = timed(run)
+    # the tracker's split: its four stages replayed around the three
+    # host-checked linear-algebra calls
+    stages = pnp.RansacStages(*(graphs.CapturedFunction(fn, "cuda", name=f"ransac_{name}")
+                                for name, fn in zip(pnp.RansacStages._fields, pnp.RansacStages())))
+    replay = lambda: pnp.ransac_pnp_multi(noise, *args, stages=stages)  # noqa: E731
+    first = replay()
+    rep, ms_rep = timed(replay)
+    same = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(res, rep, first))
     best = int(res.n_inliers.argmax())
     err_R = float(np.abs(res.R[best].cpu().numpy() - R).max())
     err_t = float(np.abs(res.t[best].cpu().numpy() - t).max())
     found = int((res.inliers[best].cpu().numpy() & inlier).sum())
     log(f"[solvers] ransac_pnp_multi {C} candidates x {N} points x {NH} hypotheses (x4 P3P seeds): "
         f"best candidate {best}, {int(res.n_inliers[best])} inliers ({found} of {int(inlier.sum())} true), "
-        f"|R - R*| {err_R:.2e}, |t - t*| {err_t:.2e}; {ms:.2f} ms, {device_launches(run)} launches")
+        f"|R - R*| {err_R:.2e}, |t - t*| {err_t:.2e}; {ms:.2f} ms, {device_launches(run)} launches; "
+        f"its 4 stages replayed: {ms_rep:.2f} ms, {device_launches(replay)} launches, equal to the eager "
+        f"call to the bit: {same}; pool MB {round(stages.p3p.pool_bytes() / 1e6, 1)}")
+    if not same:
+        raise AssertionError("[solvers] the replayed RANSAC stages differ from the eager call")
     if not (best == 2 and bool(res.success[2]) and found >= 0.9 * inlier.sum()
             and err_R < 1e-2 and err_t < 5e-2 and int(res.success.sum()) == 1):
         raise AssertionError("[solvers] ransac_pnp_multi did not find the true pose")
+    # the tracker's padding: the live candidates, then rows with no valid
+    # point and zero draws up to 8, through the replayed stages, against the
+    # live candidates alone (eagerly, at their own batch size)
+    for live in ([2], [0, 1, 2]):
+        pad = lambda a: torch.cat([a[live], a.new_zeros((C - len(live),) + a.shape[1:])])  # noqa: E731
+        padded = pnp.ransac_pnp_multi(pad(noise), args[0], pad(args[1]), *args[2:4], pad(args[4]),
+                                      stages=stages)
+        alone = pnp.ransac_pnp_multi(noise[live], args[0], args[1][live], args[2][live], args[3][live],
+                                     args[4][live])
+        n = len(live)
+        equal = {f: torch.equal(getattr(padded, f)[:n], getattr(alone, f))
+                 for f in ("success", "inliers", "n_inliers")}
+        err = [float((getattr(padded, f)[:n] - getattr(alone, f)).abs().max()) for f in ("R", "t")]
+        log(f"[solvers] ransac_pnp_multi {n} live candidates padded to {C} (replayed) against the {n} alone "
+            f"(eager): equal {equal}, max |R - R'| {err[0]:.2e}, |t - t'| {err[1]:.2e}, to the bit: "
+            f"{all(torch.equal(a[:n], b) for a, b in zip(padded, alone))}; padded rows succeed: "
+            f"{bool(padded.success[n:].any())}")
+        if not (all(equal.values()) and max(err) <= 1e-6 and not bool(padded.success[n:].any())):
+            raise AssertionError(f"[solvers] RANSAC padded to {C} differs from its {n} live candidates")
+
+
+def solver_extraction(seq, cfg):
+    """A non-fused frame's extraction through `Tracking.build_frame`, on
+    the spiral's frame 0: a tracker with graphs (its extraction program)
+    against one with graphs=False, features equal to the bit in every call,
+    host ms of a call after warm-up (the `Frame`'s host copies included),
+    and each kernel counted once per extraction through the replays."""
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
+
+    slams = [MonoSLAM(cfg, device="cuda", graphs=g) for g in (True, False)]
+    names = ("kp_und", "kp_octave", "kp_angle", "desc", "kp_valid")
+    k.reset_launch_counts()
+    same, ms = True, {}
+    for _ in range(3):  # the first call of the program runs eagerly, then captures
+        fg, fe = (slam.tracker.build_frame(seq.images[0], 0.0) for slam in slams)
+        same &= all(np.array_equal(getattr(fg, n), getattr(fe, n)) for n in names)
+    for slam, g in zip(slams, (True, False)):
+        ms[g] = float(np.median([timed(lambda: slam.tracker.build_frame(seq.images[0], 0.0))[1]
+                                 for _ in range(5)]))
+    launches = dict(k.launch_counts)
+    (prog,) = slams[0].tracker.programs()
+    for slam in slams:
+        slam.shutdown()
+    log(f"[solvers] a non-fused frame's extraction {W}x{H} (Tracking.build_frame): replayed {ms[True]:.2f} ms "
+        f"against {ms[False]:.2f} eager; features equal to the bit: {same}; program {prog['name']} "
+        f"{prog['captures']} capture, {prog['replays']} replays, pool MB {round(prog['pool_mb'], 1)}; "
+        f"kernel launches {launches} over 16 extractions")
+    if not same:
+        raise AssertionError("[solvers] the extraction program's features differ from graphs=False's")
+    if launches != {"fast_nms": 16, "gather_patches": 16}:
+        raise AssertionError("[solvers] a kernel was not counted once per extraction")
+    return launches, 16
 
 
 def solver_sim3(seed: int = 1, N: int = 300, NH: int = 256):
@@ -857,14 +936,21 @@ def solver_essential_graph(P: int = 200):
 
 def solver_ba_cg():
     """bundle_adjustment_cg on ba_problem(): the Huber cost of the dense
-    solver's solution within 1%, and two calls bit-identical."""
+    solver's solution within 1%, two calls bit-identical, and its LM
+    iterations replayed (`cg_lm_iteration`) equal to the eager call."""
     from ceres_mono_orb_slam2_tpu_torch.ops import optim
+    from ceres_mono_orb_slam2_tpu_torch.utils import graphs
 
     args = ba_problem()
     run = lambda: optim.bundle_adjustment_cg(*args, iters=20, cg_iters=50, robust=True)  # noqa: E731
     run()
     cg, ms = timed(run)
     again, n_launches = profiled(run)
+    step = graphs.CapturedFunction(optim.cg_lm_iteration, "cuda", name="gba_lm_cg", owner="mapper")
+    replay = lambda: optim.bundle_adjustment_cg(*args, iters=20, step=step)  # noqa: E731
+    first = replay()
+    rep, ms_rep = timed(replay)
+    same_rep = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(cg, rep, first))
     dense, ms_dense = timed(lambda: optim.bundle_adjustment(*args, iters_huber=20, iters_trimmed=0))
     # the dense solver reports its trimmed cost: a zero-iteration CG call
     # evaluates the Huber cost of its solution
@@ -875,16 +961,19 @@ def solver_ba_cg():
     log(f"[solvers] bundle_adjustment_cg P={args[1].shape[0]} M={args[3].shape[0]} O={args[4].shape[0]}, "
         f"20 LM x 50 CG: Huber cost {c0:.3f} -> {c_cg:.3f} (dense Schur solver: {c_dense:.3f}, "
         f"{ms_dense:.1f} ms), inliers {int(cg.inlier_obs.sum())}; {ms:.1f} ms, "
-        f"{n_launches} launches; two calls bit-identical: {same}")
-    if not same:
-        raise AssertionError("bundle_adjustment_cg is not deterministic on the card")
+        f"{n_launches} launches; two calls bit-identical: {same}; LM iterations replayed: {ms_rep:.1f} ms, "
+        f"equal to the eager call to the bit: {same_rep}, pool MB "
+        f"{round(step.pool_bytes() / 1e6, 1)}")
+    if not (same and same_rep):
+        raise AssertionError("bundle_adjustment_cg is not deterministic on the card, or its replay differs")
     if not (c_cg < 0.5 * c0 and abs(c_cg - c_dense) <= 0.01 * c_dense):
         raise AssertionError("[solvers] bundle_adjustment_cg does not reach the dense solver's cost")
 
 
-def phase_solvers():
+def phase_solvers(seq, cfg):
     for solver in (solver_pnp, solver_sim3, solver_essential_graph, solver_ba_cg):
         solver()
+    return solver_extraction(seq, cfg)
 
 
 def trajectory_ate(slam, seq):
@@ -1003,12 +1092,20 @@ def run_loop(threaded: bool = False):
     """One run of the closed geometric circle through the full system;
     threaded, each frame waits for the mapper thread and for a running
     global BA, so that the run makes the serial run's every decision."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import sim3opt
     from ceres_mono_orb_slam2_tpu_torch.utils.geosim import frame_image
     from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse
 
     slam, gt_c = loop_system(threaded)
     gx = slam.tracker.extractor
-    est, gt, frame_ms, changed = [], [], [], []
+    est, gt, frame_ms, changed, refined = [], [], [], [], []
+    refine = sim3opt.optimize_sim3
+
+    def counted_refine(K1, K2, X1, *a, **kw):
+        """The loop closer's Sim(3) refinement, its match count recorded
+        (how often a program per count would replay)."""
+        refined.append(X1.shape[0])
+        return refine(K1, K2, X1, *a, **kw)
 
     def frame(i):
         T = slam.track_monocular(frame_image(i, TUM_H, TUM_W), i / 30.0)
@@ -1020,13 +1117,17 @@ def run_loop(threaded: bool = False):
                 gba.join(timeout=JOIN_TIMEOUT_S)
         return T
 
-    for i in range(LOOP_FRAMES):
-        T, ms = timed(lambda: frame(i))
-        frame_ms.append(ms)
-        changed.append(slam.map_changed())
-        if T is not None:
-            est.append(-T[:3, :3].T @ T[:3, 3])
-            gt.append(gt_c[i])
+    sim3opt.optimize_sim3 = counted_refine
+    try:
+        for i in range(LOOP_FRAMES):
+            T, ms = timed(lambda: frame(i))
+            frame_ms.append(ms)
+            changed.append(slam.map_changed())
+            if T is not None:
+                est.append(-T[:3, :3].T @ T[:3, 3])
+                gt.append(gt_c[i])
+    finally:
+        sim3opt.optimize_sim3 = refine
     est, gt = np.stack(est), np.stack(gt)
     traj = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
     n_kp = np.mean([(s >= 0).sum() for s in gx.slot_lm_by_frame.values()])
@@ -1036,7 +1137,7 @@ def run_loop(threaded: bool = False):
         slam.shutdown()
     return dict(slam=slam, state=state, tracked=len(est), frame_ms=frame_ms,
                 ate_pct=100.0 * ate_rmse(est, gt) / traj, centre_sum=float(est.sum()),
-                changed=changed, mean_keypoints=float(n_kp), worker_alive=alive)
+                changed=changed, mean_keypoints=float(n_kp), worker_alive=alive, refined=refined)
 
 
 def phase_loop():
@@ -1066,6 +1167,8 @@ def phase_loop():
                 f"{st['gba_ms']:.1f} ms (P={st.get('P')} M={st.get('M')} O={st.get('O')}, "
                 f"{st.get('solver')} solver); frame of the closure "
                 f"{max(run['frame_ms']):.1f} ms, median frame {np.median(run['frame_ms'][10:]):.1f} ms")
+        log(f"[loop] run {r}: Sim(3) refinements (op by op) {len(run['refined'])}, their match counts "
+            f"{run['refined']}")
         log(f"[loop] run {r} repeat check: ATE {run['ate_pct']!r} %, sum of camera centres "
             f"{run['centre_sum']!r}")
         checks = {
@@ -1405,28 +1508,49 @@ def check_cli_outputs(d: str, summary: dict, seq, max_ate_pct: float) -> dict:
     return dict(checks=checks, ate=ate, rows=len(fr_rows), idx=idx)
 
 
-def mode_launches(cfg, voc, map_path: str, images, timestamps, device: str) -> dict:
-    """Device launches of one tracked frame (the tracker only, without local
-    mapping) against a loaded map, in localization mode and in the normal
-    mode, where it takes the fused path: a system loads the map, tracks
-    frames 12-14 in localization mode (relocalization, the reference
-    keyframe, the motion model) and frame 15 under torch.profiler, then
-    leaves the mode, tracks frame 16 (fused) and frame 17 under the
-    profiler."""
+def mode_launches(cfg, voc, map_path: str, images, timestamps, device: str, graphs: bool = True) -> dict:
+    """Launches of one tracked frame (the tracker only, without local
+    mapping) against a loaded map, in localization mode, in the normal
+    mode, where it takes the fused path, and relocalizing: a system loads
+    the map, tracks frames 12-14 in localization mode (relocalization, the
+    reference keyframe, the motion model) and frame 15 under
+    torch.profiler, then leaves the mode, tracks frame 16 (fused) and frame
+    17 under the profiler, then is blinded and relocalizes frame 18 under
+    it (without graphs frame 17 is not profiled: `[graphs]` profiles an
+    eager fused frame, and one takes ~30 s under the profiler). Per mode:
+    (host API launches, graph launches among them,
+    device kernels and copies, the method, ms under the profiler, the
+    extraction program's replays in the frame, the kernel launches counted
+    in it)."""
     from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
+    from ceres_mono_orb_slam2_tpu_torch.models.tracking import State
+    from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
 
-    slam = MonoSLAM(cfg, vocabulary=voc, device=device)
+    slam = MonoSLAM(cfg, vocabulary=voc, device=device, graphs=graphs)
     slam.load_map(map_path)
     slam.activate_localization_mode()
     out = {}
-    for mode, warm, measured in (("localization", (12, 13, 14), 15), ("normal", (16,), 17)):
+    for mode, warm, measured in (("localization", (12, 13, 14), 15), ("normal", (16,), 17),
+                                 ("relocalization", (), 18)):
         if mode == "normal":
             slam.deactivate_localization_mode()
+        if mode == "relocalization":  # blinded: the programs of frame 12's relocalization replay
+            slam.tracker.state, slam.tracker.velocity = State.LOST, None
         for i in warm:
             slam.track_monocular(images[i], float(timestamps[i]))
+        if mode == "normal" and not graphs:
+            slam.track_monocular(images[measured], float(timestamps[measured]))
+            continue
+        ext = slam.tracker._extraction
+        replays, counted = ext[1].n_replays if ext else 0, dict(k.launch_counts)
         t0 = time.perf_counter()
-        _, n = profiled(lambda: slam.tracker.grab_image(images[measured], float(timestamps[measured])))
-        out[mode] = (n, slam.tracker.frame_stats[-1]["method"], (time.perf_counter() - t0) * 1e3)
+        _, api, dev = api_launches(lambda: slam.tracker.grab_image(images[measured], float(timestamps[measured])))
+        ms = (time.perf_counter() - t0) * 1e3
+        ext = slam.tracker._extraction
+        out[mode] = (sum(n for name, n in api.items() if "Launch" in name),
+                     sum(n for name, n in api.items() if "GraphLaunch" in name), sum(dev.values()),
+                     slam.tracker.frame_stats[-1]["method"], ms, (ext[1].n_replays if ext else 0) - replays,
+                     {name: k.launch_counts[name] - n for name, n in counted.items()})
     slam.shutdown()
     return out
 
@@ -1496,8 +1620,8 @@ def phase_cli(device: str = "cuda"):
     with open(stats2) as f:
         st2 = [json.loads(line) for line in f]
     methods = collections.Counter(st["method"] for st in st2)
-    frame_launches = mode_launches(cfg, voc, os.path.join(out1, "map.npz"), u8, seq.timestamps, device) \
-        if device == "cuda" else {}
+    frame_launches = {graphs: mode_launches(cfg, voc, os.path.join(out1, "map.npz"), u8, seq.timestamps, device,
+                                            graphs) for graphs in (True, False)} if device == "cuda" else {}
     helped = subprocess.run([sys.executable, "-m", "ceres_mono_orb_slam2_tpu_torch.cli", "--help"],
                             cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
                             timeout=300)
@@ -1512,9 +1636,12 @@ def phase_cli(device: str = "cuda"):
     log(f"[cli] run 2 loaded {s2.get('loaded_keyframes')} keyframes and {s2.get('loaded_map_points')} map "
         f"points; methods {dict(methods)}; first frame {st2[0]['method'] if st2 else None} ok "
         f"{st2[0]['ok'] if st2 else None}, its tracking {st2[0]['track_ms'] if st2 else float('nan'):.1f} ms")
-    for mode, (n_launches, method, ms) in frame_launches.items():
-        log(f"[cli] one frame against run 1's map, {mode}: method {method}, {n_launches} device launches "
-            f"(kernels and copies), {ms:.1f} ms under the profiler")
+    for graphs, modes in frame_launches.items():
+        for mode, (n_api, n_graph, n_dev, method, ms, replays, kern) in modes.items():
+            log(f"[cli] one frame against run 1's map, {mode}, {'graphs' if graphs else 'graphs=False'}: "
+                f"method {method}, {n_api} host API launches ({n_graph} graph launches), {n_dev} device "
+                f"kernels and copies, {ms:.1f} ms under the profiler; extraction replays {replays}, kernel "
+                f"launches counted {kern}")
     log(f"[cli] python -m ceres_mono_orb_slam2_tpu_torch.cli --help: exit {helped.returncode}")
     checks.update({
         "run 1 exit code 0": rc1 == 0,
@@ -1533,6 +1660,9 @@ def phase_cli(device: str = "cuda"):
         for kname in ("fast_nms", "gather_patches"):
             checks[f"run 1 {kname} launched once per extraction"] = launches1[kname] == n1
             checks[f"run 2 {kname} launched once per extraction"] = launches2[kname] == n2
+        loc = frame_launches[True]["localization"]
+        checks["a localization frame's extraction is one replay of its program, each kernel counted once"] = (
+            loc[5] == 1 and loc[6] == {"fast_nms": 1, "gather_patches": 1})
     failed = [c for c, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"cli checks failed: {failed}")
@@ -1853,6 +1983,7 @@ def phase_sharded(cfg):
     from ceres_mono_orb_slam2_tpu_torch.parallel import mesh as pmesh
     from ceres_mono_orb_slam2_tpu_torch.parallel import multistream as ms
     from ceres_mono_orb_slam2_tpu_torch.parallel import sharded_ba as sba
+    from ceres_mono_orb_slam2_tpu_torch.utils import graphs
 
     n = SHARDED_RANKS
     backend = "nccl" if torch.cuda.device_count() >= n else "gloo"
@@ -1870,6 +2001,12 @@ def phase_sharded(cfg):
 
     cost0, clean0 = huber(*ba[1:4]), huber(*ba[1:4], clean)
     single_ba, ms_ba1 = timed(lambda: optim.bundle_adjustment_cg(*dev_ba, iters=20, cg_iters=50))
+    # the same solve as the loop closer's CG global BA runs it: each LM
+    # iteration a replay of one captured program (the first call captures)
+    cg_step = graphs.CapturedFunction(optim.cg_lm_iteration, "cuda", name="gba_lm_cg", owner="mapper")
+    replay_ba = lambda: optim.bundle_adjustment_cg(*dev_ba, iters=20, step=cg_step)  # noqa: E731
+    (first_ba, ms_first_ba), (rep_ba, ms_rep_ba) = timed(replay_ba), timed(replay_ba)
+    same_rep_ba = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(single_ba, first_ba, rep_ba))
     (Rt, tt), (R0, t0, s0, ei, ej, Rm, tm, sm, fixed) = drifted_ring(SHARDED_RING, seed=2)
     f32 = lambda *a: tuple(np.asarray(x, np.float32) for x in a)  # noqa: E731
     ring = f32(R0, t0, s0) + (ei, ej) + f32(Rm, tm, sm) + (np.ones(len(ei), bool), fixed)
@@ -1922,6 +2059,9 @@ def phase_sharded(cfg):
         f"{clean1:.3f}, inliers {n_inl} (single {n_inl1}); max |dR| {d_R:.2e}, "
         f"|dt| {d_t:.2e}, |dpoint| {d_p:.2e}; {s_ba1 * 1e3:.1f} / {s_ba2 * 1e3:.1f} ms (single "
         f"process {ms_ba1:.1f} ms); two runs bit-identical: {twice}")
+    log(f"[sharded] the single-process solve with its LM iterations replayed (optim.cg_lm_iteration): "
+        f"{ms_rep_ba:.1f} ms against {ms_ba1:.1f} eager (first call, capturing: {ms_first_ba:.1f} ms), "
+        f"equal to the eager solve to the bit: {same_rep_ba}; pool MB {round(cg_step.pool_bytes() / 1e6, 1)}")
     # the essential graph
     centre = lambda R, t, s: -np.einsum("pji,pj->pi", R, t / s[:, None])  # noqa: E731
     c_true, c_0 = centre(Rt, tt, np.ones(len(tt))), centre(*(a.astype(np.float64) for a in ring[:3]))
@@ -1957,6 +2097,7 @@ def phase_sharded(cfg):
             and probe["all_gather float32"] == probe["all_gather int32"] == list(range(n)),
         "every rank returns the same bits": same_ranks,
         "two sharded BA runs bit-identical": twice,
+        "the replayed single-process CG BA equals the eager one to the bit": same_rep_ba,
         # the JAX test's problem has no gross errors; here the 2% of them hold the
         # whole cost near 0.4x its start, so its bar holds on the other 98%
         "BA Huber cost below 0.5x the initial, and below 0.1x over the observations "
@@ -2008,6 +2149,38 @@ def record_phases(tracker) -> list:
         return out, feats, copy
 
     tracker._fused_dispatch, tracker._dispatch_chained = fused, chain
+    return seen
+
+
+def record_solvers(slam) -> dict:
+    """Every non-fused frame's features, BoW word ids and RANSAC result of
+    `slam` from now on, as host arrays in call order."""
+    seen = {"features": [], "words": [], "ransac": []}
+    tr, db = slam.tracker, slam.keyframe_db
+    build, transform, stages = tr.build_frame, db.transform, tr._ransac_stages
+
+    def build_frame(image, timestamp):
+        f = build(image, timestamp)
+        seen["features"].append(tuple(np.array(getattr(f, n)) for n in
+                                      ("kp_und", "kp_octave", "kp_angle", "desc", "kp_valid")))
+        return f
+
+    def word_ids(desc, valid):
+        out = transform(desc, valid)
+        seen["words"].append(out[0].cpu().numpy())
+        return out
+
+    def ransac_stages():
+        st = stages()
+
+        def refit(*a):
+            res = st.refit(*a)
+            seen["ransac"].append(tuple(x.cpu().numpy() for x in res))
+            return res
+
+        return st._replace(refit=refit)
+
+    tr.build_frame, db.transform, tr._ransac_stages = build_frame, word_ids, ransac_stages
     return seen
 
 
@@ -2303,6 +2476,7 @@ def phase_graphs(seq, cfg):
     # a relocalization through the captured pose solve and the fused frame
     # after it at the widened radius (th_local 5.0)
     pair = graph_pair(rcfg, vocabulary=voc)
+    solvers = [record_solvers(slam) for slam, _ in pair]
     poses, _ = lockstep(pair, range(GRAPH_RELOC_FRAMES), images, rseq.timestamps)
     for slam, _ in pair:
         slam.tracker.state, slam.tracker.velocity = State.LOST, None
@@ -2316,10 +2490,15 @@ def phase_graphs(seq, cfg):
     tr = pair[0][0].tracker
     methods = [(st["frame_id"], st["method"], st["ok"]) for st in tr.frame_stats if st["frame_id"] >= 43]
     wide = [th for _, th, *_ in pair[0][1] if th != 1.0]
+    same_solvers = {k: _same(solvers[0][k], solvers[1][k]) for k in solvers[0]}
+    counts = {k: len(v) for k, v in solvers[0].items()}
     log(f"[graphs] [reloc]'s frames 0-{GRAPH_RELOC_FRAMES - 1}, then blinded at {GRAPH_RELOC_FRAMES}: methods "
         f"{methods}; fused frames at th_local 5.0: {len(wide)}; replay against eager to the bit: "
-        f"{diff is None}{'' if diff is None else ' (' + diff + ')'}; programs {mb(tr.programs())}")
+        f"{diff is None}{'' if diff is None else ' (' + diff + ')'}; non-fused frames' features, BoW word "
+        f"ids, RANSAC results ({counts}) equal to the bit: {same_solvers}; programs {mb(tr.programs())}")
     checks["[reloc] frames and the blinded relocalization: replay equal to eager to the bit"] = diff is None
+    checks["[reloc] non-fused features, BoW word ids and RANSAC results equal to the bit"] = (
+        all(same_solvers.values()) and min(counts.values()) >= 1)
     last2 = [(st["method"], st["ok"]) for st in tr.frame_stats[-2:]]
     checks["the blinded tracker relocalizes, then fuses at th_local 5.0"] = (
         last2 == [("reloc", True), ("fused", True)] and pair[0][1][-1][1] == 5.0)
@@ -2372,7 +2551,7 @@ def main() -> int:
     for name, phase in (("graphs", lambda: phase_graphs(seq, cfg)),
                         ("threaded", lambda: phase_concurrent(seq, cfg, spiral, pipelined=False)),
                         ("pipelined", lambda: phase_concurrent(seq, cfg, spiral, pipelined=True)),
-                        ("bow", lambda: phase_bow(seq, cfg)), ("solvers", phase_solvers),
+                        ("bow", lambda: phase_bow(seq, cfg)), ("solvers", lambda: phase_solvers(seq, cfg)),
                         ("reloc", phase_reloc), ("loop", phase_loop),
                         ("multistream", lambda: phase_multistream(cfg)),
                         ("multisystem", lambda: phase_multisystem(seq, cfg, spiral_poses, spiral)),
