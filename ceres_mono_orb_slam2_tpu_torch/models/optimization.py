@@ -165,12 +165,14 @@ def run_global_ba(m, config, loop_kf_id: int, n_iters: int = 50, stop_cb=None,
 
 
 def global_bundle_adjustment(m, config, n_iters: int = 20, fixed_kf_ids=None,
-                             device=DEFAULT_DEVICE):
+                             device=DEFAULT_DEVICE, robust_step=None):
     """Full Huber-robust BA over the whole map (GlobalBundleAdjustemnt),
     applied in place. The first keyframe (or `fixed_kf_ids`) fixes the gauge.
     Returns False when the map has too few observations to solve. It does
     not bump `big_change_idx`: the two-view initializer calls it, and
-    `map_changed()` must not report initialisation."""
+    `map_changed()` must not report initialisation. `robust_step` runs each
+    LM iteration (`optim.bundle_adjustment`'s; `Tracking` passes its
+    captured `optim.lm_iteration_robust`)."""
     device = resolve_device(device)
     prob = _whole_map_problem(m, config, device)
     if prob is None:
@@ -186,7 +188,7 @@ def global_bundle_adjustment(m, config, n_iters: int = 20, fixed_kf_ids=None,
     # observations a far-from-optimum map needs
     res = optim.bundle_adjustment(K, R, t, pts, op, oj, ouv, ow, ovalid,
                                   torch.as_tensor(fixed, device=device), pvalid,
-                                  iters_huber=n_iters, iters_trimmed=0)
+                                  iters_huber=n_iters, iters_trimmed=0, robust_step=robust_step)
     Rn, tn, ptsn = (a.cpu().numpy() for a in (res.R, res.t, res.points))
     for kf in kfs:
         s = kf_slot[kf.id]

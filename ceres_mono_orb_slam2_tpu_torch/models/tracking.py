@@ -43,8 +43,11 @@ localization frames; JAX: the jitted extractor) replays a program per
 (H, W, N) with both kernels inside, and relocalization's RANSAC, padded to
 `RELOC_MAX_CANDIDATES` candidates as in the JAX tracker, replays its four
 stages around the three host-checked linear-algebra calls (`ops/pnp.py`).
-`graphs=False` calls the same functions directly, as `jax.disable_jit`
-does.
+Monocular initialization replays the bootstrap matcher per N, the two-view
+RANSAC's four stages around its five host-checked linear-algebra calls
+(`ops/twoview.py`) and each LM iteration of the initial map's global BA
+(JAX: three jitted programs). `graphs=False` calls the same functions
+directly, as `jax.disable_jit` does.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import enum
 import itertools
 import logging
 import time
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -137,13 +141,16 @@ class Tracking:
         self._fused_step = None
         self.n_fused_frames = 0
         # captured programs (utils/graphs.py): the frontend (with the
-        # extractor it captured) and the unfused pose solve; graphs=False
-        # calls the functions directly
+        # extractor it captured), a non-fused frame's extraction, the
+        # unfused pose solve, relocalization's RANSAC stages and the
+        # initializer's (`_initializer_programs`); graphs=False calls the
+        # functions directly
         self.graphs = bool(graphs)
         self._frontend = None
         self._extraction = None
         self._pose_solver = None
         self._ransac = None
+        self._initializer = None
         self._consts = {}
 
         # pipelined mode: the in-flight frame (its device outputs, started
@@ -485,10 +492,35 @@ class Tracking:
                 for name, fn in zip(pnp.RansacStages._fields, pnp.RansacStages())))
         return self._ransac
 
+    def _initializer_programs(self):
+        """Monocular initialization's programs, made once (JAX: the jitted
+        bootstrap matcher, two-view RANSAC and global BA): (the matcher at
+        its 100-px window, per N; `twoview.TwoViewStages` of the four stage
+        programs; the initial map's global-BA LM iteration, one capture and
+        19 replays a solve), or None without graphs."""
+        if not self.graphs:
+            return None
+        if self._initializer is None:
+            def program(fn, name, **kw):
+                return graphs_mod.CapturedFunction(fn, self.device, name=name,
+                                                   lock=lambda m=self.map: m.update_lock, **kw)
+
+            self._initializer = (
+                program(partial(matcher.search_for_initialization, window=100.0), "init_match"),
+                twoview.TwoViewStages(*(program(fn, f"two_view_{name}") for name, fn in
+                                        zip(twoview.TwoViewStages._fields, twoview.TwoViewStages()))),
+                program(optim.lm_iteration_robust, "init_gba_lm_robust", max_programs=1))
+        return self._initializer
+
     def captured(self) -> list:
         """This tracker's `CapturedFunction`s (none without graphs)."""
         owned = [p[1] for p in (self._frontend, self._extraction) if p]
-        return owned + ([self._pose_solver] if self._pose_solver else []) + list(self._ransac or ())
+        init = []
+        if self._initializer:
+            match, stages, gba = self._initializer
+            init = [match, *stages, gba]
+        return (owned + ([self._pose_solver] if self._pose_solver else []) + list(self._ransac or ())
+                + init)
 
     def programs(self) -> list:
         """`CapturedFunction.report()` of this tracker's programs."""
@@ -846,20 +878,35 @@ class Tracking:
             self.init_ref = None
             return
         ref = self.init_ref
-        idx, _, valid = matcher.search_for_initialization(
-            ref.j_und, ref.j_angle, ref.j_bits, ref.j_valid, ref.j_octave,
-            f.j_und, f.j_angle, f.j_bits, f.j_valid, f.j_octave, window=100.0)
-        if int(valid.sum()) < 100:
+        attempt = self._two_view_attempt(ref, f)
+        if attempt is None:
             self.init_ref = None
             return
-        noise = self.uniform_noise((self.config.shapes.ransac_hypotheses, ref.n_kp))
-        res = twoview.initialize_two_view(torch.as_tensor(noise, device=self.device),
-                                          self.jK, ref.j_und, f.j_und[idx], valid)
+        idx, res = attempt
         if not bool(res.success):
             return
         self._create_initial_map(ref, f, idx.cpu().numpy(), res.triangulated.cpu().numpy(),
                                  res.R21.cpu().numpy(), res.t21.cpu().numpy(),
                                  res.points3d.cpu().numpy())
+
+    def _two_view_attempt(self, ref: Frame, f: Frame):
+        """One initialization attempt's device work: the bootstrap matcher,
+        then (with at least 100 matches, read on the host between the two
+        programs as in the JAX tracker) the two-view RANSAC. Returns (idx,
+        `twoview.InitResult`), or None with too few matches."""
+        programs = self._initializer_programs()
+        args = (ref.j_und, ref.j_angle, ref.j_bits, ref.j_valid, ref.j_octave,
+                f.j_und, f.j_angle, f.j_bits, f.j_valid, f.j_octave)
+        if programs is None:
+            idx, _, valid = matcher.search_for_initialization(*args, window=100.0)
+        else:
+            idx, _, valid = programs[0](*args)
+        if int(valid.sum()) < 100:
+            return None
+        noise = self.uniform_noise((self.config.shapes.ransac_hypotheses, ref.n_kp))
+        return idx, twoview.initialize_two_view(torch.as_tensor(noise, device=self.device), self.jK,
+                                                ref.j_und, f.j_und[idx], valid,
+                                                stages=programs and programs[1])
 
     def _create_initial_map(self, ref: Frame, cur: Frame, idx, tri, R21, t21, pts3d):
         """Reference CreateInitialMapMonocular (Tracking.cc:455-551)."""
@@ -884,7 +931,9 @@ class Tracking:
         log.info("New Map created with %d points", m.n_map_points())
 
         # full BA on the 2-KF map (GlobalBundleAdjustemnt(map, 20))
-        global_bundle_adjustment(m, self.config, n_iters=20, device=self.device)
+        programs = self._initializer_programs()
+        global_bundle_adjustment(m, self.config, n_iters=20, device=self.device,
+                                 robust_step=programs and programs[2])
 
         # depth normalisation: median scene depth -> 1
         kf1_ = m.keyframes[kf1.id]

@@ -18,12 +18,6 @@ from ceres_mono_orb_slam2_tpu_torch.ops import lie, matcher, twoview
 from ceres_mono_orb_slam2_tpu_torch.ops.frustum import frustum_and_scale
 
 
-def _normalised(K, xy):
-    """Pixels (..., 2) -> K-normalised image coordinates (..., 2)."""
-    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
-    return torch.stack([(xy[..., 0] - cx) / fx, (xy[..., 1] - cy) / fy], -1)
-
-
 def _partners(xy2, idx):
     """Each slot's matched keypoint of its neighbour: xy2 (B, N, 2) at idx (B, N)."""
     return xy2.gather(-2, idx[..., None].expand(idx.shape + (2,)))
@@ -55,8 +49,8 @@ def triangulation_search(K, invK, R1, t1, xy1, oct1, ang1, desc1, free1,
     # triangulate every slot against its matched partner (normalised coords)
     P2 = torch.cat([R2, t2[:, :, None]], -1)
     AtA = twoview.dlt_normal_matrix(P1.expand(B, N, 3, 4), P2[:, None].expand(B, N, 3, 4),
-                                    _normalised(K, xy1).expand(B, N, 2),
-                                    _normalised(K, _partners(xy2, idx)))
+                                    twoview.k_normalised(K, xy1).expand(B, N, 2),
+                                    twoview.k_normalised(K, _partners(xy2, idx)))
     return idx, valid, AtA
 
 
@@ -68,9 +62,9 @@ def triangulation_gates(x, idx, valid, K, R1, t1, xy1, oct1, R2, t2, xy2, oct2,
     world points)."""
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
     X = twoview.dlt_point(x)
-    xn1 = _normalised(K, xy1)
+    xn1 = twoview.k_normalised(K, xy1)
     uv2 = _partners(xy2, idx)
-    xn2 = _normalised(K, uv2)
+    xn2 = twoview.k_normalised(K, uv2)
     R2T = R2.transpose(-1, -2)
     ray1 = torch.cat([xn1, torch.ones_like(xn1[:, :1])], -1) @ R1
     ray2 = torch.cat([xn2, torch.ones_like(xn2[..., :1])], -1) @ R2
@@ -109,31 +103,15 @@ def triangulate_with_neighbors(K, invK, R1, t1, xy1, oct1, ang1, desc1, free1,
     with the neighbour axis native (no loop over neighbours).
     Returns per-neighbour (idx (B,N), good (B,N), X (B,N,3) world points).
 
-    `triangulation_search`, the batched 4x4 eigensolver (`smallest_eigvecs`)
-    and `triangulation_gates`, in that order."""
+    `triangulation_search`, the batched 4x4 eigensolver
+    (`twoview.smallest_eigvecs`, in chunks the card's solver takes) and
+    `triangulation_gates`, in that order."""
     idx, valid, AtA = triangulation_search(K, invK, R1, t1, xy1, oct1, ang1, desc1, free1, R2, t2,
                                            xy2, oct2, ang2, desc2, free2, level_sigma2,
                                            scale_factors)
-    good, X = triangulation_gates(smallest_eigvecs(AtA), idx, valid, K, R1, t1, xy1, oct1, R2, t2,
+    good, X = triangulation_gates(twoview.smallest_eigvecs(AtA), idx, valid, K, R1, t1, xy1, oct1, R2, t2,
                                   xy2, oct2, level_sigma2, scale_factors, ratio_factor)
     return idx, good, X
-
-
-# matrices per call of the batched eigensolver: cuSOLVER's batched syev
-# (CUDA 12.8, H100) refuses 32,768 or more 4x4 matrices in a call with
-# CUSOLVER_STATUS_INVALID_VALUE (B = 20 neighbours of 2000 keypoints are
-# 40,000), and each matrix is solved alone, so a chunked call gives the
-# same bits
-EIGH_BATCH = 16384
-
-
-def smallest_eigvecs(A):
-    """The eigenvector of the smallest eigenvalue of each symmetric matrix
-    in A (..., n, n), through the batched eigensolver in chunks of at most
-    `EIGH_BATCH` matrices."""
-    flat = A.reshape((-1,) + A.shape[-2:])
-    parts = [twoview._smallest_eigvec(c) for c in flat.split(EIGH_BATCH)]
-    return torch.cat(parts).reshape(A.shape[:-1])
 
 
 def fuse_into_targets(K, R, t, kp_xy, kp_oct, kp_desc, kp_valid, pos, normal, mind, maxd,

@@ -5,14 +5,19 @@ shape (`Tracking._ensure_frontend`, `build_fused_step`, the jitted
 `pose_optimization`), and the mapper's device work too (the local-BA scan,
 the vmapped triangulation, the essential graph). A `CapturedFunction` runs
 the same PyTorch ops and hand-written kernels as a plain call of its
-function, captured once per input-shape key into a `torch.cuda.CUDAGraph`
+function, captured once per input key (the arguments' shapes, dtypes and
+layouts) into a `torch.cuda.CUDAGraph`
 and replayed after that: one graph launch in place of the thousands of
 launches Python would issue.
 
 Each call of a `CapturedFunction`:
 
 - stages its arguments into the program's static input buffers: a tensor
-  is copied in with `copy_` (from the host or the card); a `Fill` writes its
+  is copied in with `copy_` (from the host or the card) into a buffer of its
+  own layout where that layout is dense (a transposed matrix stays
+  transposed: an op may round differently on another layout, and the
+  program must compute what the plain call computes), contiguous where it
+  is not (a broadcast view); a `Fill` writes its
   buffer itself (`gathered`: a gather with `out=`, so that the tensor it
   gathers from is never part of a capture). Any other leaf of the argument
   tree raises `TypeError`: a Python number would be frozen into the capture;
@@ -159,8 +164,28 @@ def _capture_stream(device: torch.device, owner: str) -> torch.cuda.Stream:
     return s
 
 
+def _contiguous_strides(shape) -> tuple:
+    strides, n = [], 1
+    for size in reversed(shape):
+        strides.append(n)
+        n *= size
+    return tuple(reversed(strides))
+
+
+def _staged_strides(a: torch.Tensor) -> tuple:
+    """The strides of a's static buffer: a's own where they lay it out
+    densely (a permutation of the contiguous layout: a transposed view,
+    say), else contiguous (a broadcast, a strided slice)."""
+    expected = 1
+    for d in sorted(range(a.dim()), key=lambda d: (a.stride(d), a.shape[d])):
+        if a.shape[d] != 1 and a.stride(d) != expected:
+            return _contiguous_strides(a.shape)
+        expected *= a.shape[d]
+    return tuple(a.stride())
+
+
 class Program:
-    """One captured program: the static input buffers of its shape key, its
+    """One captured program: the static input buffers of its layout key, its
     static outputs and graph (None on the CPU), the kernel launches one
     replay makes, and how often it was captured and replayed."""
 
@@ -178,7 +203,7 @@ class Program:
         return sum(t.numel() * t.element_size() for t in self.inputs)
 
 class CapturedFunction:
-    """`fn` captured once per input-shape key and replayed (see the module
+    """`fn` captured once per input key and replayed (see the module
     docstring). `fn` takes and returns trees (tuples, named tuples) of
     tensors. `lock` is a context manager factory held around each capture;
     `owner` names the thread that calls it ("tracker" or "mapper"), whose
@@ -205,9 +230,9 @@ class CapturedFunction:
         shapes = []
         for i, a in enumerate(leaves):
             if isinstance(a, torch.Tensor):
-                shapes.append((tuple(a.shape), a.dtype))
+                shapes.append((tuple(a.shape), a.dtype, _staged_strides(a)))
             elif isinstance(a, Fill):
-                shapes.append((a.shape, a.dtype))
+                shapes.append((a.shape, a.dtype, _contiguous_strides(a.shape)))
             else:
                 raise TypeError(f"{self.name}: argument leaf {i} is a {type(a).__name__}, not a tensor: "
                                 "a value that is not a tensor would be frozen into the capture")
@@ -232,7 +257,8 @@ class CapturedFunction:
                         torch.cuda.current_stream(self.device).synchronize()
                     del self.programs[next(iter(self.programs))]
                 self.n_evicted += 1
-            prog = Program(key, [torch.empty(s, dtype=dt, device=self.device) for s, dt in key[1]])
+            prog = Program(key, [torch.empty_strided(s, st, dtype=dt, device=self.device)
+                                 for s, dt, st in key[1]])
         self.programs[key] = prog
         return prog
 
@@ -346,7 +372,7 @@ class CapturedFunction:
         replays, calls, the MB of its static inputs and of the pool it
         shares with its owner's other programs."""
         pool_mb = self.pool_bytes() / 1e6
-        return [{"name": self.name, "shapes": [list(s) for s, _ in p.key[1]],
+        return [{"name": self.name, "shapes": [list(s) for s, *_ in p.key[1]],
                  "captures": p.n_captures, "replays": p.n_replays, "calls": p.n_calls,
                  "input_mb": p.input_bytes() / 1e6, "pool_mb": pool_mb}
                 for p in self.programs.values()]

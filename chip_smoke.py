@@ -29,7 +29,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      on [reloc]'s frames 0-52 and a blinded tracker's relocalization (the
      captured pose solve) with its fused frame at th_local 5.0, and there
      every non-fused frame's features (the extraction program), BoW word
-     ids and RANSAC result (its four stage programs); one S=8
+     ids and RANSAC result (its four stage programs); a held start: the
+     spiral's frame 0 shown 8 times, then its next frames until the map
+     initialises and one more: every initialization attempt's matches and
+     `InitResult` (the matcher's and the two-view RANSAC's programs), the
+     initial map after its global BA (its LM iterations replayed) and every
+     pose equal to the bit, the ms of one attempt (eager, replayed, first
+     call), of the initial global BA, and the host API launches of one
+     attempt both ways; one S=8
      `make_multistream_step`; the median frame of both; one fused frame of
      each under torch.profiler: its host API launches (`cudaLaunchKernel`,
      `cudaGraphLaunch`) and copies, and its kernels on the card against the
@@ -57,7 +64,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      calls to the bit, each kernel counted once per extraction; RANSAC at 1
      and 3 live candidates padded to 8 as the tracker pads them, against
      the live candidates alone (equal success, inliers and counts, R and t
-     within 1e-6);
+     within 1e-6); the two-view initializer on a pair padded to 4096 rows
+     (the budget of nFeatures 2500: 32,768 cheirality matrices, twice
+     what one call of cuSOLVER's batched eigensolver takes) eagerly and
+     through its stage programs, equal to the bit; the chunked eigensolver
+     against one call and other chunk sizes, and one call at 32,768
+     matrices in a subprocess (refused, the limit the chunks answer);
   7. `[reloc]`: `MonoSLAM` with a trained vocabulary over 56 rendered
      640x480 frames of the ring world with frames 44-46 blacked out: LOST,
      then relocalized from pixels without a reset, one launch of each
@@ -77,7 +89,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      1241x376 frames each, stream 0 the spiral of phase 4: its decisions
      equal to the serial run's and its camera centres within 1e-3 of it,
      every stream initialised, tracked and accurate, one launch of each
-     kernel per batched frame; then the same bars with `threaded=True` (a
+     kernel per batched frame, what the streams' initializer programs
+     cost the tracker pool; then the same bars with `threaded=True` (a
      mapper thread per stream) over the first 9 frames;
  11. `[cli]`: the mono_slam CLI as a user runs it, in this process: 36
      frames of the strafe world rendered at 640x480 through the TUM2 lens
@@ -212,6 +225,13 @@ SHARDED_TIMEOUT_S = 400.0  # the ranks' collectives and the join of all of them
 # frames up to and after the blackout then a blinded tracker's
 # relocalization and its wide-radius fused frame, one S=8 batched step
 GRAPH_FRAMES, GRAPH_GEO_FRAMES, GRAPH_RELOC_FRAMES = 16, 16, 53
+# [graphs]' held start: the spiral's frame 0 shown this often (a camera
+# held still before it moves: the tracker tries to initialise on every
+# frame), then the spiral's next frames until the map initialises
+HELD_FRAMES, HELD_MAX_FRAMES = 8, 12
+# [solvers]' two-view initializer: a pair of TWO_VIEW_MATCHES matches padded
+# to the extractor's budget of nFeatures 2500 (`_round_up_pow2`)
+TWO_VIEW_ROWS, TWO_VIEW_MATCHES = 4096, 2500
 
 
 def log(msg: str):
@@ -661,13 +681,23 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def trace_events(prof) -> list:
+    """(name, on the device) of every event a finished torch.profiler run
+    recorded, read from its Kineto results: the events that `prof.events()`
+    makes into FunctionEvents, without building them and their tree, which
+    takes tens of seconds for the ~200,000 events of an eager frame."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.device_type() == cuda) for e in prof.profiler.kineto_results.events()
+            if not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def profiled(fn):
     """(fn()'s result, the device kernels and copies that the call
     launches), from torch.profiler with CUDA activity only."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return out, sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    return out, sum(on_device for _, on_device in trace_events(prof))
 
 
 def device_launches(fn):
@@ -970,8 +1000,95 @@ def solver_ba_cg():
         raise AssertionError("[solvers] bundle_adjustment_cg does not reach the dense solver's cost")
 
 
+def same_bits(xs, ys) -> bool:
+    """Equal dtype, shape and bytes, element by element (NaN included) of
+    two sequences of tensors or arrays."""
+    def bits(a):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        return a.dtype.str, a.shape, a.tobytes()
+
+    xs, ys = list(xs), list(ys)
+    return len(xs) == len(ys) and all(bits(x) == bits(y) for x, y in zip(xs, ys))
+
+
+def solver_two_view(seed: int = 3, N: int = TWO_VIEW_ROWS, n: int = TWO_VIEW_MATCHES, NH: int = 256):
+    """`initialize_two_view` on n matches of a known motion (10% of them
+    wrong) padded to N rows, as the tracker passes nFeatures 2500's budget:
+    eagerly and through its four stage programs (a first call, then
+    replays), successful and equal to the bit; the H path's 8 N cheirality
+    matrices go through the eigensolver in chunks. Then the chunks on the
+    card: 32,768 matrices in chunks of `EIGH_BATCH` against chunks of 4096,
+    16,384 in one call against chunks of 4096, to the bit; and one call at
+    32,768 in a subprocess, which cuSOLVER refused in PR 11's runs."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import twoview
+    from ceres_mono_orb_slam2_tpu_torch.utils import graphs
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1]], np.float32)
+    R, t = _rot([0.01, 0.03, 0.005]), np.array([0.5, 0.02, 0.05], np.float32)
+    X = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n), rng.uniform(5, 12, n)], -1)
+    proj = lambda Xc: 500.0 * Xc[:, :2] / Xc[:, 2:] + K[:2, 2]  # noqa: E731
+    uv1 = proj(X) + rng.standard_normal((n, 2)) * 0.3
+    uv2 = proj(X @ R.T + t) + rng.standard_normal((n, 2)) * 0.3
+    bad = rng.random(n) < 0.1
+    uv2[bad] = rng.uniform([0, 0], [640, 480], (int(bad.sum()), 2))
+    pad = lambda a: np.concatenate([a, np.zeros((N - n,) + a.shape[1:], a.dtype)])  # noqa: E731
+    args = (_dev(K), _dev(pad(uv1), np.float32), _dev(pad(uv2), np.float32), _dev(pad(np.ones(n, bool))))
+    noise = torch.rand((NH, N), device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    stages = twoview.TwoViewStages(*(graphs.CapturedFunction(fn, "cuda", name=f"two_view_{name}")
+                                     for name, fn in zip(twoview.TwoViewStages._fields,
+                                                         twoview.TwoViewStages())))
+    run = lambda: twoview.initialize_two_view(noise, *args)  # noqa: E731
+    replay = lambda: twoview.initialize_two_view(noise, *args, stages=stages)  # noqa: E731
+    eager, eager_first_ms = timed(run)
+    first, first_ms = timed(replay)
+    ms, same = {"eager": [], "replayed": []}, same_bits(first, eager)
+    for _ in range(5):
+        for name, fn in (("eager", run), ("replayed", replay)):
+            out, t_ms = timed(fn)
+            ms[name].append(t_ms)
+            same &= same_bits(out, eager)
+    err_R = float(np.abs(eager.R21.cpu().numpy() - R).max())
+    cos_t = float(eager.t21.cpu().numpy() @ (t / np.linalg.norm(t)))
+    log(f"[solvers] initialize_two_view {n} matches padded to {N} rows x {NH} hypotheses "
+        f"({8 * N} cheirality matrices on the H path, in chunks of {twoview.EIGH_BATCH}): success "
+        f"{bool(eager.success)}, homography {bool(eager.used_homography)}, {int(eager.n_inliers)} inliers, "
+        f"{int(eager.triangulated.sum())} triangulated, |R - R*| {err_R:.2e}, t . t* {cos_t:.6f}; ms eager "
+        f"{np.median(ms['eager']):.2f} (first {eager_first_ms:.2f}), its 4 stages replayed "
+        f"{np.median(ms['replayed']):.2f} (first call {first_ms:.2f}), every call equal to the eager one to "
+        f"the bit: {same}; programs "
+        f"{[(p['name'], p['captures'], p['replays']) for f in stages for p in f.report()]}")
+    # the pose is one minimal set's 8-point fit, unrefined: a coarse bar
+    if not (same and bool(eager.success) and err_R < 5e-2 and cos_t > 0.95):
+        raise AssertionError("[solvers] the two-view initializer at 4096 rows failed, or its programs differ")
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B = torch.randn((2 * twoview.EIGH_BATCH, 4, 4), device="cuda", generator=g)
+    A = B @ B.transpose(-1, -2)
+    chunks = twoview.smallest_eigvecs(A)
+    one_call = torch.linalg.eigh(A[:twoview.EIGH_BATCH])[1][..., :, 0]
+    default = twoview.EIGH_BATCH
+    twoview.EIGH_BATCH = 4096
+    try:
+        small, small_half = twoview.smallest_eigvecs(A), twoview.smallest_eigvecs(A[:default])
+    finally:
+        twoview.EIGH_BATCH = default
+    equal = {"chunks of 16,384 and of 4096 at 32,768": torch.equal(chunks, small),
+             "one call and chunks of 4096 at 16,384": torch.equal(one_call, small_half)
+             and torch.equal(one_call, chunks[:default])}
+    code = ("import torch; g = torch.Generator(device='cuda').manual_seed(0); "
+            f"B = torch.randn(({2 * default}, 4, 4), device='cuda', generator=g); "
+            "torch.linalg.eigh(B @ B.transpose(-1, -2)); torch.cuda.synchronize(); print('accepted')")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    said = (r.stdout.strip().splitlines() or r.stderr.strip().splitlines() or [""])[-1][:240]
+    log(f"[solvers] the eigensolver's chunks, random SPD 4x4: equal to the bit {equal}; one call at "
+        f"{2 * default} matrices in a subprocess: exit {r.returncode}, {said!r}")
+    if not all(equal.values()):
+        raise AssertionError("[solvers] the chunked eigensolver's bits depend on the chunk size")
+
+
 def phase_solvers(seq, cfg):
-    for solver in (solver_pnp, solver_sim3, solver_essential_graph, solver_ba_cg):
+    for solver in (solver_pnp, solver_sim3, solver_essential_graph, solver_ba_cg, solver_two_view):
         solver()
     return solver_extraction(seq, cfg)
 
@@ -1352,6 +1469,13 @@ def phase_multisystem(seq, cfg, serial_poses, serial: dict):
             f"keyframes {[m.map.n_keyframes() for m in system.streams]}, map points "
             f"{[m.map.n_map_points() for m in system.streams]}, n_local_ba "
             f"{[m.local_mapper.n_local_ba for m in system.streams]}")
+        init = [p for m in system.streams for p in m.tracker.programs()
+                if p["name"].startswith(("init_", "two_view_"))]
+        log(f"[{name}] the streams' initializer programs (each stream's tracker owns its own): "
+            f"{len(init)} programs, {sum(p['captures'] for p in init)} captures, "
+            f"{sum(p['replays'] for p in init)} replays, static inputs "
+            f"{sum(p['input_mb'] for p in init):.2f} MB; the tracker pool they share "
+            f"{max((p['pool_mb'] for p in init), default=0.0):.1f} MB")
         if threaded:  # beside the unthreaded run's same frames
             same = np.asarray(unthreaded_ms[MS_STEADY:n_frames])
             beside = (f"the unthreaded run's {S / np.median(same) * 1e3:.2f} over the same frames "
@@ -2281,11 +2405,11 @@ def api_launches(fn):
         out = fn()
         torch.cuda.synchronize()
     api, dev = collections.Counter(), collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev[e.name] += 1
-        elif e.name.startswith("cu") and ("Launch" in e.name or "Memcpy" in e.name):
-            api[e.name] += 1
+    for name, on_device in trace_events(prof):
+        if on_device:
+            dev[name] += 1
+        elif name.startswith("cu") and ("Launch" in name or "Memcpy" in name):
+            api[name] += 1
     return out, api, dev
 
 
@@ -2353,6 +2477,98 @@ def graphs_loop_pair(checks: dict):
         f"the mapper's programs {program_summaries(systems[0])}")
     checks["geo-circle serial: essential graph and post-closure poses equal to the bit"] = (
         same_eg and same_closures and diff is None and len(eg[0]) >= 1 and len(closures[0]) >= 1)
+
+
+def graphs_held_start(seq, cfg, checks: dict) -> int:
+    """The spiral's frame 0 shown HELD_FRAMES times, then its next frames
+    until the map initialises and one frame more, through a MonoSLAM with
+    graphs and one with graphs=False in turn: every initialization
+    attempt's match indices and `InitResult` fields, the initial map's
+    keyframe poses and map points after its global BA, every fused frame's
+    device phase and every pose equal to the bit. Reports the attempts, the
+    ms of one attempt (eager, replayed, the first call that captures) and
+    of all of them, the initial global BA's ms, the host API launches of
+    one attempt both ways, and the initializer's programs. Returns the
+    extractions made."""
+    from ceres_mono_orb_slam2_tpu_torch.models import optimization
+
+    pair = graph_pair(cfg)
+    attempts, attempt_ms, gba_ms, after_ba, first_pair = ([], []), ([], []), ([], []), ([], []), [None, None]
+    current = [0]
+    for j, (slam, _) in enumerate(pair):
+        attempt = slam.tracker._two_view_attempt
+
+        def recorded(ref, f, attempt=attempt, j=j):
+            out, ms = timed(lambda: attempt(ref, f))
+            attempts[j].append(None if out is None else [out[0], *out[1]])
+            attempt_ms[j].append(ms)
+            first_pair[j] = first_pair[j] or (attempt, ref, f)
+            return out
+
+        slam.tracker._two_view_attempt = recorded
+    gba = optimization.global_bundle_adjustment
+
+    def recorded_gba(m, *a, **kw):
+        out, ms = timed(lambda: gba(m, *a, **kw))
+        gba_ms[current[0]].append(ms)
+        after_ba[current[0]].append([x for k in m.all_keyframes() for x in (k.Rcw.copy(), k.tcw.copy())]
+                                    + [np.array(mp.pos) for mp in m.all_map_points()])
+        return out
+
+    optimization.global_bundle_adjustment = recorded_gba
+    poses, frames, k = ([], []), [], 0
+    try:
+        while k < HELD_FRAMES + HELD_MAX_FRAMES:
+            i = 0 if k < HELD_FRAMES else k - HELD_FRAMES + 1
+            frames.append(i)
+            for j, (slam, _) in enumerate(pair):
+                current[0] = j
+                poses[j].append(slam.track_monocular(seq.images[i], k / 10.0))
+            k += 1
+            if all(len(p) >= 2 and p[-2] is not None for p in poses):  # the frame after the initial map
+                break
+    finally:
+        optimization.global_bundle_adjustment = gba
+    launches = []
+    for attempt, ref, f in first_pair:  # one more attempt of each, under the profiler
+        _, api, _ = api_launches(lambda: attempt(ref, f))
+        launches.append((sum(n for name, n in api.items() if "Launch" in name), dict(api.most_common(4))))
+    same_attempts = len(attempts[0]) == len(attempts[1]) and all(
+        (a is None) == (b is None) and (a is None or same_bits(a, b)) for a, b in zip(*attempts))
+    same_map = len(after_ba[0]) == len(after_ba[1]) == 1 and same_bits(after_ba[0][0], after_ba[1][0])
+    diff = first_difference(pair[0][1], pair[1][1]) or first_pose_difference(*poses)
+    init_at = next((n for n, T in enumerate(poses[0]) if T is not None), None)
+    names = ["init_match", *(f"two_view_{n}" for n in ("fit", "score", "motions", "check")), "init_gba_lm_robust"]
+    progs = {p["name"]: p for p in pair[0][0].tracker.programs() if p["name"] in names}
+    rows = [(n, p["captures"], p["replays"], round(p["input_mb"], 2), round(p["pool_mb"], 1))
+            for n, p in progs.items()]
+    g_ms, e_ms = attempt_ms
+    log(f"[graphs] held start: the spiral's frame 0 {HELD_FRAMES} times, then frames "
+        f"{sorted(set(frames) - {0})}: {len(g_ms)} / {len(e_ms)} attempts "
+        f"{['<100 matches' if a is None else 'ok' if bool(a[1]) else 'failed' for a in attempts[0]]}, the "
+        f"map initialised at showing {init_at}; every attempt's matches and InitResult equal to the bit: "
+        f"{same_attempts}; the initial map after its global BA: {same_map}; device phases and poses: "
+        f"{diff is None}"
+        f"{'' if diff is None else ' (' + diff + ')'}")
+    log(f"[graphs] held start: ms of one attempt eager {np.median(e_ms[1:]):.2f} (first {e_ms[0]:.2f}), "
+        f"replayed {np.median(g_ms[1:]):.2f}, first call {g_ms[0]:.2f}; all {len(g_ms)} attempts graphs "
+        f"{sum(g_ms):.2f} against eager {sum(e_ms):.2f} ms; the initial global BA graphs "
+        f"{gba_ms[0][0] if gba_ms[0] else float('nan'):.2f} against eager "
+        f"{gba_ms[1][0] if gba_ms[1] else float('nan'):.2f} ms; host API launches of one attempt graphs "
+        f"{launches[0][0]} ({launches[0][1]}), eager {launches[1][0]} ({launches[1][1]}); programs (name, "
+        f"captures, replays, input MB, pool MB) {rows}")
+    checks["held start: every attempt, the initial map and every pose equal to the bit"] = (
+        same_attempts and same_map and diff is None)
+    checks["held start: the held frames fail, a moving frame initialises"] = (
+        init_at is not None and init_at >= HELD_FRAMES and len(g_ms) >= HELD_FRAMES
+        and all(a is not None and not bool(a[1]) for a in attempts[0][:HELD_FRAMES - 1]))
+    checks["held start: one capture of each initializer program, the rest replays"] = (
+        set(progs) == set(names) and all(p["captures"] == 1 for p in progs.values())
+        and progs["init_gba_lm_robust"]["replays"] == 19
+        and progs["init_match"]["replays"] == len(g_ms))
+    for slam, _ in pair:
+        slam.shutdown()
+    return 2 * len(frames)
 
 
 def phase_graphs(seq, cfg):
@@ -2431,6 +2647,10 @@ def phase_graphs(seq, cfg):
     checks["replay-counted kernel launches equal the card's, one each"] = (
         g_counted == g_card == e_counted == e_card == {"fast_nms": 1, "gather_patches": 1})
     del pair
+
+    # a held start: the spiral's frame 0 again and again, then its next
+    # frames until the map initialises (an attempt a frame)
+    n_extract += graphs_held_start(seq, cfg, checks)
 
     # the spiral, pipelined at full rate (unthreaded)
     pair = graph_pair(cfg, pipelined=True)
