@@ -121,7 +121,11 @@ class FusedStep(nn.Module):
     current frame's features, the last frame's, the motion prediction and
     the local-map block (see `forward`). Every per-frame argument may carry
     one leading stream axis: S frames of S independent streams then go
-    through the same launches, each stream with its own pose solves."""
+    through the same launches, each stream with its own pose solves.
+
+    `pose_iters` (2, 4) int32, on the device: the LM iterations each round
+    of the last call's two pose solves ran (`PoseOptResult.iters`; with a
+    stream axis, the batch's), written by every call and replay."""
 
     def __init__(self, config, device=DEFAULT_DEVICE):
         super().__init__()
@@ -134,6 +138,7 @@ class FusedStep(nn.Module):
             config.orb.inv_level_sigma2.astype(np.float32)))
         self.log_scale = float(np.log(config.orb.scale_factor))
         self.n_levels = config.orb.n_levels
+        self.register_buffer("pose_iters", torch.zeros((2, 4), dtype=torch.int32), persistent=False)
         self.to(resolve_device(device))
 
     def _match_motion(self, d, und, cur_oct, cur_angle, cur_valid, last_oct, last_angle,
@@ -216,6 +221,7 @@ class FusedStep(nn.Module):
         pos_kp = torch.where(bound1[..., None], pos1, pos2)
         assoc = bound1 | ok_new
         res2 = optim.pose_optimization(K, res1.R, res1.t, pos_kp, und, w, assoc)
+        torch.stack([res1.iters, res2.iters], out=self.pose_iters)
 
         # chained next-frame state: what the host rebuilds for the next
         # frame's stage-1 inputs, minus the post-solve outliers

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ceres_mono_orb_slam2_tpu_torch.ops import lie
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs
 
 CHI2_MONO = 5.991  # 2-dof 95% chi-square gate
 
@@ -111,6 +112,7 @@ class PoseOptResult(NamedTuple):
     inliers: torch.Tensor  # (..., N) bool: valid obs passing the chi2 gate
     n_inliers: torch.Tensor  # (...) int32
     cost: torch.Tensor
+    iters: torch.Tensor  # (rounds,) int32: LM iterations each round ran
 
 
 def pose_optimization(K, R0, t0, pts3d, uv, inv_sigma2, valid, max_iters: int = 25,
@@ -120,16 +122,23 @@ def pose_optimization(K, R0, t0, pts3d, uv, inv_sigma2, valid, max_iters: int = 
     LM blocks, re-classifying inliers at chi2_th between blocks (the
     ORB-SLAM2 4-round trimming).
 
-    Each block is a fixed `max_iters`-iteration loop with a `done` mask that
-    freezes the state once the JAX package's while_loop would have exited
-    (an accepted step that barely moved the cost, or a rejection with damping
-    past 1): the same results with no host synchronisation per iteration.
+    Each block is the JAX package's while_loop: up to `max_iters`
+    iterations with a `done` mask that freezes the state once the loop
+    would have exited (an accepted step that barely moved the cost, or a
+    rejection with damping past 1). Each iteration runs under
+    `graphs.run_if((~done).any())`: in a captured program the iterations
+    after every problem is done are skipped on the device; run eagerly, all
+    `max_iters` run and the mask keeps their results, with no host
+    synchronisation per iteration. The loop state is written in place, so
+    a skipped iteration leaves it as it was. `iters[k]` counts the
+    iterations block k ran (the while_loop's counter), the same either way.
 
     R0 (..., 3, 3), t0 (..., 3), pts3d (..., N, 3), uv (..., N, 2), inv_sigma2
     and valid (..., N): the leading axes (none, or one entry per stream) are
     independent problems, each with its own damping, cost and `done`, so a
-    stream that has converged stays frozen while the others go on. K is
-    shared. The result's fields carry the same leading axes.
+    stream that has converged stays frozen while the others go on, and the
+    block runs until every stream is done (the vmapped while_loop). K is
+    shared. The result's fields but `iters` carry the same leading axes.
     """
     delta = math.sqrt(chi2_th)
     dev, dt = R0.device, R0.dtype
@@ -146,46 +155,55 @@ def pose_optimization(K, R0, t0, pts3d, uv, inv_sigma2, valid, max_iters: int = 
         s = torch.where(behind, torch.full_like(s, 1e6), s)
         return torch.where(active, huber_cost(s, delta), torch.zeros_like(s)).sum(-1)
 
+    def iteration(R, t, cost, lam, done, active):
+        """One LM iteration, written into R, t, cost, lam and done."""
+        r, Xc, behind = residuals(R, t)
+        s = inv_sigma2 * (r * r).sum(-1)
+        w = inv_sigma2 * huber_weight(s, delta)
+        w = torch.where(active & ~behind, w, torch.zeros_like(w))
+        Jr = _pose_jacobian(_proj_jacobian(K, Xc), Xc)  # (..., N, 2, 6)
+        wJ = w[..., None, None] * Jr
+        H = torch.einsum("...nik,...nil->...kl", wJ, Jr)
+        g = -torch.einsum("...nik,...ni->...k", wJ, r)
+        Hd = (H + lam[..., None, None] * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1))
+              + 1e-8 * eye6)
+        dR, dtv = lie.se3_exp(_solve6_spd(Hd, g))
+        R_new = dR @ R
+        t_new = lie.matvec(dR, t) + dtv
+        new_cost = cost_fn(R_new, t_new, active)
+        accept = new_cost < cost
+        stop = (accept & (cost - new_cost <= 1e-6 * cost)) | (~accept & (lam >= 1.0))
+        take = accept & ~done
+        torch.where(take[..., None, None], R_new, R, out=R)
+        torch.where(take[..., None], t_new, t, out=t)
+        torch.where(take, new_cost, cost, out=cost)
+        torch.where(done, lam, torch.where(accept, (lam * 0.25).clamp_min(1e-8),
+                                           (lam * 4.0).clamp_max(1e5)), out=lam)
+        done |= stop
+
     # project the initial rotation onto SO(3): the motion-model prediction
     # composes previous solutions and accumulates determinant drift
-    R, t = lie.so3_project(R0), t0
+    R, t = lie.so3_project(R0), t0.clone()
     active = valid
     cost = None
-    for _ in range(max(rounds, 1)):
+    iters = torch.zeros(max(rounds, 1), dtype=torch.int32, device=dev)
+    for k in range(max(rounds, 1)):
+        # the block's loop state, written in place by its iterations
         cost = cost_fn(R, t, active)
         lam = torch.full(lead, 1e-4, dtype=dt, device=dev)
         done = torch.zeros(lead, dtype=torch.bool, device=dev)
         for _ in range(max_iters):
-            r, Xc, behind = residuals(R, t)
-            s = inv_sigma2 * (r * r).sum(-1)
-            w = inv_sigma2 * huber_weight(s, delta)
-            w = torch.where(active & ~behind, w, torch.zeros_like(w))
-            Jr = _pose_jacobian(_proj_jacobian(K, Xc), Xc)  # (..., N, 2, 6)
-            wJ = w[..., None, None] * Jr
-            H = torch.einsum("...nik,...nil->...kl", wJ, Jr)
-            g = -torch.einsum("...nik,...ni->...k", wJ, r)
-            Hd = (H + lam[..., None, None] * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1))
-                  + 1e-8 * eye6)
-            dR, dtv = lie.se3_exp(_solve6_spd(Hd, g))
-            R_new = dR @ R
-            t_new = lie.matvec(dR, t) + dtv
-            new_cost = cost_fn(R_new, t_new, active)
-            accept = new_cost < cost
-            stop = (accept & (cost - new_cost <= 1e-6 * cost)) | (~accept & (lam >= 1.0))
-            take = accept & ~done
-            R = torch.where(take[..., None, None], R_new, R)
-            t = torch.where(take[..., None], t_new, t)
-            cost = torch.where(take, new_cost, cost)
-            lam = torch.where(done, lam, torch.where(accept, (lam * 0.25).clamp_min(1e-8),
-                                                     (lam * 4.0).clamp_max(1e5)))
-            done = done | stop
+            running = (~done).any()
+            with graphs.run_if(running):
+                iters[k].add_(running)
+                iteration(R, t, cost, lam, done, active)
         R = lie.so3_project(R)
         # re-classify: outliers leave, returners re-enter
         r, Xc, behind = residuals(R, t)
         chi2 = inv_sigma2 * (r * r).sum(-1)
         active = valid & ~behind & (chi2 <= chi2_th)
     return PoseOptResult(R=R, t=t, inliers=active,
-                         n_inliers=active.to(torch.int32).sum(-1), cost=cost)
+                         n_inliers=active.to(torch.int32).sum(-1), cost=cost, iters=iters)
 
 
 def group_sum(group):

@@ -67,7 +67,8 @@ def make_multistream_step(config, h: int, w: int, device=DEFAULT_DEVICE, graphs:
     With `graphs` (the default) the step is a captured program per S
     (`utils/graphs.py`): images and state are staged into its buffers;
     `step.programs()` reports the programs. `graphs=False` runs it op by
-    op."""
+    op. `step.pose_iters` (4,) int32, on the device: the LM iterations each
+    round of the last step's pose solve ran (`PoseOptResult.iters`)."""
     device = resolve_device(device)
     step = _make_step(config, h, w, device, mesh=None)
     if not graphs:
@@ -85,6 +86,7 @@ def make_multistream_step(config, h: int, w: int, device=DEFAULT_DEVICE, graphs:
         return StepResult(*program(images, state))
 
     captured.programs = program.report
+    captured.pose_iters = step.pose_iters
     return captured
 
 
@@ -98,6 +100,7 @@ def _make_step(config, h: int, w: int, device, mesh):
     bounds = torch.tensor([0, w, 0, h], dtype=torch.float32, device=device)
     log_scale = float(np.log(config.orb.scale_factor))
     n_levels = config.orb.n_levels
+    pose_iters = torch.zeros(4, dtype=torch.int32, device=device)
 
     @torch.no_grad()
     def step(images, state: StreamState) -> StepResult:
@@ -128,11 +131,13 @@ def _make_step(config, h: int, w: int, device, mesh):
         # iterations, each stream frozen at its own convergence
         res = optim.pose_optimization(K, state.Rcw, state.tcw, pos_kp, feats.xy,
                                       inv_sigma2[feats.octave], ok)
+        pose_iters.copy_(res.iters)
         out = StepResult(Rcw=res.R, tcw=res.t, n_inliers=res.n_inliers, n_matches=n_matches)
         if mesh is not None:
             out = StepResult(*(gather_blocks(x, mesh, "dp") for x in out))
         return out
 
+    step.pose_iters = pose_iters
     return step
 
 

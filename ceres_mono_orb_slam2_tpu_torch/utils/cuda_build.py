@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels in `csrc/`.
+"""Build and load the hand-written CUDA kernels in `csrc/` (and the host
+half of `utils/graphs.run_if`'s CUDA-graph IF nodes, `csrc/graph_if.cu`).
 
 The kernels have a plain C interface and are bound with ctypes: at first
 use, one `nvcc` per `csrc/*.cu` file, all started together, compiles it for
@@ -91,5 +92,11 @@ def load():
         lib.gather_patches_launch.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci, vp, vp, ci, ci,
                                               cl, vp, vp, ci, vp]
         lib.gather_patches_launch.restype = ci
+        lib.graph_if_begin.argtypes = [vp, vp, vp]
+        lib.graph_if_begin.restype = ci
+        lib.graph_if_end.argtypes = [vp]
+        lib.graph_if_end.restype = ci
+        lib.graph_if_error.argtypes = [ci]
+        lib.graph_if_error.restype = ctypes.c_char_p
         _lib = lib
     return _lib

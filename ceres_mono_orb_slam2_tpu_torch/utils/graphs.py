@@ -71,6 +71,24 @@ message of its own.
 recently called goes first): local-BA windows change with every keyframe,
 so their keys rarely repeat after the solve that made them.
 
+A data-dependent exit (the JAX package's `lax.while_loop`) is captured with
+`run_if(pred)`: while the current stream captures, the body of its `with`
+block goes into a CUDA-graph IF node on `pred`, a 0-d bool tensor computed
+on the capturing stream, so a replay runs the body only where `pred` is
+true at that point of the replay. Outside a capture (a key's first call on
+its owner's side stream, `graphs=False`, the CPU) the body simply runs. So
+a body must give the same result whether it runs or not where `pred` is
+false (a masked update, as `optim.pose_optimization`'s LM iterations are),
+and must write the state that later code reads in place (`copy_`, `out=`):
+a tensor a skipped body would have bound is never written. The node is made
+by `csrc/graph_if.cu` (torch 2.11 binds no conditional node): a one-thread
+kernel sets its condition from `pred` at every replay. Each owner's side
+stream has a body stream, on which its bodies are captured, and a body pool
+(a `torch.cuda.MemPool`) that their intermediates come from: one body's
+intermediates are free again for the next, and, as with the owner's pool,
+programs that replay one at a time on the default stream may share them.
+`if_nodes` counts the nodes captured.
+
 On the CPU the function runs on the static buffers at every call, without
 capture: the same staging and the same clones. A capture or a replay that
 fails raises; nothing falls back to running the function eagerly.
@@ -94,6 +112,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels
+from ceres_mono_orb_slam2_tpu_torch.utils import cuda_build
 from ceres_mono_orb_slam2_tpu_torch.utils.device import resolve_device
 
 
@@ -123,6 +142,45 @@ def stacked(tensors) -> Fill:
                 lambda dst: torch.stack(tensors, out=dst))
 
 
+@contextlib.contextmanager
+def run_if(pred: torch.Tensor):
+    """Run the `with` block's body only where the 0-d bool tensor `pred` is
+    true: a CUDA-graph IF node while the current stream captures a
+    `CapturedFunction`, the body unconditionally otherwise (see the module
+    docstring). The node comes from `csrc/graph_if.cu` (torch 2.11 binds
+    none); the body is captured on its capture stream's body stream, its
+    allocations in that stream's body pool. Raises where no node can be
+    made, rather than capture the body without its condition."""
+    # a CPU build's capture query raises: never ask it for a CPU tensor
+    if pred.device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        yield
+        return
+    if pred.dtype != torch.bool or pred.dim() != 0:
+        raise ValueError(f"run_if: pred must be a 0-d bool tensor, got {pred.dtype} {tuple(pred.shape)}")
+    parent = torch.cuda.current_stream(pred.device)
+    body = _if_bodies.get(parent.cuda_stream)
+    if body is None:
+        raise RuntimeError("run_if: the capturing stream is no CapturedFunction's capture stream")
+    stream, pool = body
+    lib = cuda_build.load()
+    _check_if(lib, lib.graph_if_begin(parent.cuda_stream, pred.data_ptr(), stream.cuda_stream))
+    try:
+        with torch.cuda.stream(stream), torch.cuda.use_mem_pool(pool, pred.device):
+            yield
+    finally:
+        _check_if(lib, lib.graph_if_end(stream.cuda_stream))
+    if_nodes[pred.device] = if_nodes.get(pred.device, 0) + 1
+
+
+def _check_if(lib, rc: int):
+    if rc != 0:
+        raise RuntimeError(f"run_if: CUDA-graph IF node failed: {lib.graph_if_error(rc).decode()}")
+
+
+# IF nodes captured by `run_if`, per device
+if_nodes: dict = {}
+# capture stream handle -> (its body stream, its body pool): see run_if
+_if_bodies = {}
 _side_streams = {}
 _pools = {}
 # the first error of every failed capture, in order (see the module docstring)
@@ -161,7 +219,13 @@ def _capture_stream(device: torch.device, owner: str) -> torch.cuda.Stream:
     s = _side_streams.get((device, owner))
     if s is None:
         s = _side_streams[(device, owner)] = torch.cuda.Stream(device)
+        _if_bodies[s.cuda_stream] = (torch.cuda.Stream(device), torch.cuda.MemPool())
     return s
+
+
+def _segment_bytes(pool_id) -> int:
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool_id))
 
 
 def _contiguous_strides(shape) -> tuple:
@@ -362,24 +426,28 @@ class CapturedFunction:
         (their intermediates and static outputs); 0 on the CPU or before a
         capture."""
         entry = _pools.get((self.device, self.owner))
-        if entry is None:
-            return 0
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == tuple(entry[0]))
+        return 0 if entry is None else _segment_bytes(entry[0])
+
+    def body_pool_bytes(self) -> int:
+        """Bytes of its owner's body pool (`run_if`'s IF-node bodies); 0 on
+        the CPU or before a capture."""
+        stream = _side_streams.get((self.device, self.owner))
+        return 0 if stream is None else _segment_bytes(_if_bodies[stream.cuda_stream][1].id)
 
     def report(self) -> list:
         """One dict per program kept: its key's leaf shapes, captures,
-        replays, calls, the MB of its static inputs and of the pool it
-        shares with its owner's other programs."""
-        pool_mb = self.pool_bytes() / 1e6
+        replays, calls, the MB of its static inputs, of the pool it shares
+        with its owner's other programs and of their body pool."""
+        pool_mb, body_mb = self.pool_bytes() / 1e6, self.body_pool_bytes() / 1e6
         return [{"name": self.name, "shapes": [list(s) for s, *_ in p.key[1]],
                  "captures": p.n_captures, "replays": p.n_replays, "calls": p.n_calls,
-                 "input_mb": p.input_bytes() / 1e6, "pool_mb": pool_mb}
+                 "input_mb": p.input_bytes() / 1e6, "pool_mb": pool_mb, "body_pool_mb": body_mb}
                 for p in self.programs.values()]
 
     def summary(self) -> dict:
         """Captures and replays over the function's life (dropped programs
-        included), the programs kept and dropped, and its owner's pool MB."""
+        included), the programs kept and dropped, and its owner's pool and
+        body pool MB."""
         return {"name": self.name, "captures": self.n_captures, "replays": self.n_replays,
                 "kept": len(self.programs), "dropped": self.n_evicted,
-                "pool_mb": self.pool_bytes() / 1e6}
+                "pool_mb": self.pool_bytes() / 1e6, "body_pool_mb": self.body_pool_bytes() / 1e6}

@@ -4,7 +4,8 @@
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build the CUDA kernels of `ceres_mono_orb_slam2_tpu_torch/csrc/` with
-     nvcc (one process per source, started together);
+     nvcc (one process per source, started together; `graph_if.cu` is the
+     IF node of `utils/graphs.run_if`, not a kernel of the table);
   2. hold each kernel bit-exact to its plain PyTorch version on packed
      pyramids: the 8-level KITTI 1241x376 pyramid at B=1 and B=8 and the
      8-level TUM 640x480 one at B=1, u8-valued and float pyramids, FAST
@@ -29,7 +30,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      on [reloc]'s frames 0-52 and a blinded tracker's relocalization (the
      captured pose solve) with its fused frame at th_local 5.0, and there
      every non-fused frame's features (the extraction program), BoW word
-     ids and RANSAC result (its four stage programs); a held start: the
+     ids, RANSAC result (its four stage programs) and unfused pose solve;
+     the LM iterations each round of the fused frames', the unfused and
+     the S=8 step's pose solves ran (`PoseOptResult.iters`: the pose
+     solve's iterations are CUDA-graph IF nodes, skipped after
+     convergence), and a replayed fused frame's device kernels fewer than
+     an eager one's; a held start: the
      spiral's frame 0 shown 8 times, then its next frames until the map
      initialises and one more: every initialization attempt's matches and
      `InitResult` (the matcher's and the two-view RANSAC's programs), the
@@ -572,8 +578,11 @@ def phase_slam(seq, cfg):
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"slam checks failed: {failed}")
+    stages = ("process_new", "cull_mp", "triangulate", "fuse", "lba", "cull_kf")
     timing = {"median": float(np.median(steady)), "p95": float(np.percentile(steady, 95)),
-              "frame_ms": frame_ms}
+              "frame_ms": frame_ms,
+              "stage_ms": {st: round(float(np.mean([p[st] for p in slam.local_mapper.pass_ms if st in p] or [0.0])),
+                                     2) for st in stages}}
     return launches, poses, timing
 
 
@@ -644,7 +653,8 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
         f"{total_s:.2f} s with {'the pacing and ' if pipelined else ''}the drain at shutdown beside the "
         f"serial run's {serial_s:.2f} s")
     log(f"[{name}] mapper: {len(lm.pass_ms)} passes, {mapping_s:.2f} s in all, mean stage ms "
-        f"{ {st: round(v, 2) for st, v in stage_ms.items()} }; frames that waited for local mapping "
+        f"{ {st: round(v, 2) for st, v in stage_ms.items()} } beside the serial run's {serial['stage_ms']}; "
+        f"frames that waited for local mapping "
         f"{slam.n_keyframe_waits}, longest wait {slam.max_keyframe_wait_ms:.1f} ms; the mapper's programs "
         f"(captures, replays, kept, dropped, shared pool MB) {program_summaries(slam)}")
     checks = {
@@ -2258,18 +2268,19 @@ def _same(a, b) -> bool:
 
 def record_phases(tracker) -> list:
     """Every device phase of `tracker` from now on, in order: (kind,
-    th_local, FusedOut, features, packed control buffer)."""
+    th_local, FusedOut, features, packed control buffer, the LM iterations
+    each round of its two pose solves ran)."""
     seen = []
     dispatch, chained = tracker._fused_dispatch, tracker._dispatch_chained
 
     def fused(args):
         out, feats, ctl, lblock = dispatch(args)
-        seen.append(("fused", float(args[9]), out, feats, ctl))
+        seen.append(("fused", float(args[9]), out, feats, ctl, tracker._fused_step.pose_iters.clone()))
         return out, feats, ctl, lblock
 
     def chain(image, p):
         out, feats, copy = chained(image, p)
-        seen.append(("chained", 1.0, out, feats, copy[0]))
+        seen.append(("chained", 1.0, out, feats, copy[0], tracker._fused_step.pose_iters.clone()))
         return out, feats, copy
 
     tracker._fused_dispatch, tracker._dispatch_chained = fused, chain
@@ -2277,11 +2288,17 @@ def record_phases(tracker) -> list:
 
 
 def record_solvers(slam) -> dict:
-    """Every non-fused frame's features, BoW word ids and RANSAC result of
-    `slam` from now on, as host arrays in call order."""
-    seen = {"features": [], "words": [], "ransac": []}
+    """Every non-fused frame's features, BoW word ids, RANSAC result and
+    unfused pose solve (its `PoseOptResult`, `iters` last) of `slam` from
+    now on, as host arrays in call order."""
+    seen = {"features": [], "words": [], "ransac": [], "pose": []}
     tr, db = slam.tracker, slam.keyframe_db
-    build, transform, stages = tr.build_frame, db.transform, tr._ransac_stages
+    build, transform, stages, solve = tr.build_frame, db.transform, tr._ransac_stages, tr._solve_pose
+
+    def solve_pose(*a):
+        res = solve(*a)
+        seen["pose"].append(tuple(x.cpu().numpy() for x in res))
+        return res
 
     def build_frame(image, timestamp):
         f = build(image, timestamp)
@@ -2305,6 +2322,7 @@ def record_solvers(slam) -> dict:
         return st._replace(refit=refit)
 
     tr.build_frame, db.transform, tr._ransac_stages = build_frame, word_ids, ransac_stages
+    tr._solve_pose = solve_pose
     return seen
 
 
@@ -2316,7 +2334,8 @@ def first_difference(a: list, b: list):
         if x[:2] != y[:2]:
             return f"device phase {i}: {x[:2]} against {y[:2]}"
         named = lambda r: ([(f"out.{n}", t) for n, t in zip(r[2]._fields, r[2])]  # noqa: E731
-                           + [(f"feats.{n}", t) for n, t in zip(r[3]._fields, r[3])] + [("ctl", r[4])])
+                           + [(f"feats.{n}", t) for n, t in zip(r[3]._fields, r[3])] + [("ctl", r[4])]
+                           + [("pose_iters", r[5])])
         for (name, u), (_, v) in zip(named(x), named(y)):
             if u.dtype != v.dtype or u.shape != v.shape or not torch.equal(u.cpu(), v.cpu()):
                 return f"device phase {i} ({x[0]}): {name}"
@@ -2395,6 +2414,14 @@ def lockstep(pair, frames, images, timestamps):
             torch.cuda.synchronize()
             frame_ms[j].append((time.perf_counter() - t) * 1e3)
     return poses, frame_ms
+
+
+def iter_stats(iters) -> dict:
+    """Mean and max over calls of the LM iterations each round of a pose
+    solve ran: `iters` (calls, ..., rounds) of `PoseOptResult.iters`."""
+    a = np.asarray(iters, dtype=np.float64).reshape(-1, np.shape(iters)[-1])
+    return {"mean": [round(float(x), 2) for x in a.mean(0)], "max": [int(x) for x in a.max(0)],
+            "calls": len(a)}
 
 
 def api_launches(fn):
@@ -2588,6 +2615,7 @@ def phase_graphs(seq, cfg):
     from ceres_mono_orb_slam2_tpu_torch.models.tracking import State
     from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
     from ceres_mono_orb_slam2_tpu_torch.parallel import multistream as ms
+    from ceres_mono_orb_slam2_tpu_torch.utils import graphs as graphs_mod
     from ceres_mono_orb_slam2_tpu_torch.utils.geosim import (
         GeoExtractor, GeoWorld, frame_image, make_geo_trajectory)
 
@@ -2598,7 +2626,8 @@ def phase_graphs(seq, cfg):
     k.reset_launch_counts()
     n_extract, checks = 0, {}
     mb = lambda progs: [(p["name"], max(p["shapes"], key=np.prod), round(p["pool_mb"], 1),  # noqa: E731
-                         round(p["input_mb"], 2), p["captures"], p["replays"]) for p in progs]
+                         round(p["body_pool_mb"], 1), round(p["input_mb"], 2), p["captures"], p["replays"])
+                        for p in progs]
 
     # the spiral, serial: frame times side by side, then one fused frame of
     # each system under the profiler (the tracker only, mapping after it)
@@ -2615,18 +2644,24 @@ def phase_graphs(seq, cfg):
         counted = {name: k.launch_counts[name] - before[name] for name in before}
         on_card = {name: sum(n for ev, n in dev.items() if f"{name}_kernel" in ev) for name in before}
         stats = slam.tracker.frame_stats
-        profiles.append((api, counted, on_card, stats[-1]["method"] if stats else None))
+        profiles.append((api, counted, on_card, stats[-1]["method"] if stats else None, sum(dev.values())))
     n_extract += 2
     torch.cuda.synchronize()
     diff = first_difference(pair[0][1], pair[1][1]) or first_pose_difference(*poses)
     map_diff = first_map_difference(*passes)
     med = [float(np.median(m[10:])) for m in frame_ms]
     launches_api = [sum(n for name, n in api.items() if "Launch" in name) for api, *_ in profiles]
-    (g_api, g_counted, g_card, g_method), (e_api, e_counted, e_card, e_method) = profiles
+    (g_api, g_counted, g_card, g_method, g_dev), (e_api, e_counted, e_card, e_method, e_dev) = profiles
     log(f"[graphs] spiral serial, {GRAPH_FRAMES} frames: {len(pair[0][1])} fused frames, replay against eager "
         f"to the bit: {diff is None}{'' if diff is None else ' (' + diff + ')'}; median frame ms (frames 10+) "
         f"graphs {med[0]:.2f}, eager {med[1]:.2f} ({med[1] / med[0]:.2f}x); programs (name, largest input, "
-        f"pool MB, input MB, captures, replays) {mb(pair[0][0].tracker.programs())}")
+        f"pool MB, body pool MB, input MB, captures, replays) {mb(pair[0][0].tracker.programs())}")
+    fused_iters = [[r[5].cpu().numpy() for r in phases if r[0] == "fused"] for _, phases in pair]
+    log(f"[graphs] spiral serial: LM iterations a round (4 rounds of up to 25) of the fused frames' pose "
+        f"solves, graphs / eager: solve 1 {iter_stats([x[0] for x in fused_iters[0]])} / "
+        f"{iter_stats([x[0] for x in fused_iters[1]])}, solve 2 {iter_stats([x[1] for x in fused_iters[0]])} / "
+        f"{iter_stats([x[1] for x in fused_iters[1]])}; IF nodes captured in the process so far "
+        f"{graphs_mod.if_nodes}")
     stage_means = [{st: round(float(np.mean([p[st] for p in slam.local_mapper.pass_ms if st in p] or [0.0])), 2)
                     for st in ("triangulate", "fuse", "lba")} for slam, _ in pair]
     log(f"[graphs] spiral serial: {len(passes[0])} mapping passes, every keyframe pose and map point after "
@@ -2638,12 +2673,17 @@ def phase_graphs(seq, cfg):
     log(f"[graphs] one fused frame under torch.profiler ({g_method} / {e_method}): host API launches graphs "
         f"{launches_api[0]} ({dict(g_api.most_common(6))}), eager {launches_api[1]} "
         f"({dict(e_api.most_common(6))}); kernels counted through the replay {g_counted}, on the card "
-        f"{g_card}; eager counted {e_counted}, on the card {e_card}")
+        f"{g_card}; eager counted {e_counted}, on the card {e_card}; device kernels and copies of the "
+        f"frame graphs {g_dev}, eager {e_dev} ({g_dev / max(e_dev, 1):.3f})")
     checks["spiral serial: replay equal to eager to the bit"] = diff is None and len(pair[0][1]) >= 10
     checks["spiral serial: keyframes and map points after every mapping pass equal to the bit"] = (
         map_diff is None and len(passes[0]) >= 3)
     checks["the profiled frames are fused"] = g_method == e_method == "fused"
     checks["a fused frame is one graph launch"] = sum(n for name, n in g_api.items() if "GraphLaunch" in name) == 1
+    # the pose solves' iterations after convergence are IF nodes skipped
+    checks["the replayed fused frame runs fewer device kernels than the eager one"] = g_dev < e_dev
+    checks["the fused frames' pose solves exit before 25 iterations a round"] = (
+        len(fused_iters[0]) >= 10 and float(np.mean(fused_iters[0])) < 25)
     checks["replay-counted kernel launches equal the card's, one each"] = (
         g_counted == g_card == e_counted == e_card == {"fast_nms": 1, "gather_patches": 1})
     del pair
@@ -2712,12 +2752,15 @@ def phase_graphs(seq, cfg):
     wide = [th for _, th, *_ in pair[0][1] if th != 1.0]
     same_solvers = {k: _same(solvers[0][k], solvers[1][k]) for k in solvers[0]}
     counts = {k: len(v) for k, v in solvers[0].items()}
+    pose_iters = [iter_stats([r[-1] for r in s["pose"]]) for s in solvers]
     log(f"[graphs] [reloc]'s frames 0-{GRAPH_RELOC_FRAMES - 1}, then blinded at {GRAPH_RELOC_FRAMES}: methods "
         f"{methods}; fused frames at th_local 5.0: {len(wide)}; replay against eager to the bit: "
         f"{diff is None}{'' if diff is None else ' (' + diff + ')'}; non-fused frames' features, BoW word "
-        f"ids, RANSAC results ({counts}) equal to the bit: {same_solvers}; programs {mb(tr.programs())}")
+        f"ids, RANSAC results, unfused pose solves ({counts}) equal to the bit: {same_solvers}; the unfused "
+        f"pose solves' LM iterations a round, graphs / eager: {pose_iters[0]} / {pose_iters[1]}; programs "
+        f"{mb(tr.programs())}")
     checks["[reloc] frames and the blinded relocalization: replay equal to eager to the bit"] = diff is None
-    checks["[reloc] non-fused features, BoW word ids and RANSAC results equal to the bit"] = (
+    checks["[reloc] non-fused features, BoW word ids, RANSAC results and pose solves equal to the bit"] = (
         all(same_solvers.values()) and min(counts.values()) >= 1)
     last2 = [(st["method"], st["ok"]) for st in tr.frame_stats[-2:]]
     checks["the blinded tracker relocalizes, then fuses at th_local 5.0"] = (
@@ -2726,14 +2769,18 @@ def phase_graphs(seq, cfg):
 
     # one S=8 batched step
     steps = [ms.make_multistream_step(cfg, H, W, device="cuda", graphs=g) for g in (True, False)]
-    first, replayed, eager = steps[0](images8, state), steps[0](images8, state), steps[1](images8, state)
+    first, replayed = steps[0](images8, state), steps[0](images8, state)
+    step_iters = [steps[0].pose_iters.tolist()]
+    eager = steps[1](images8, state)
+    step_iters.append(steps[1].pose_iters.tolist())
     step_ms = [float(np.median([timed(lambda: st(images8, state))[1] for _ in range(5)])) for st in steps]
     n_extract += 3 + 10
     same = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(replayed, eager, first))
     log(f"[graphs] make_multistream_step S={N_STREAMS}: replay equal to eager and to the first (eager) call "
-        f"to the bit: {same}; step ms graphs {step_ms[0]:.2f}, eager {step_ms[1]:.2f}; programs "
+        f"to the bit: {same}; step ms graphs {step_ms[0]:.2f}, eager {step_ms[1]:.2f}; LM iterations a "
+        f"round of its pose solve, graphs / eager {step_iters[0]} / {step_iters[1]}; programs "
         f"{mb(steps[0].programs())}")
-    checks["S=8 batched step: replay equal to eager to the bit"] = same
+    checks["S=8 batched step: replay equal to eager to the bit"] = same and step_iters[0] == step_iters[1]
 
     # geo-circle-72 serial through both systems: the essential graph of each
     # closure (its GN iterations replayed against eager), then the poses
