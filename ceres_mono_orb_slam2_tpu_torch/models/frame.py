@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ceres_mono_orb_slam2_tpu_torch.ops import camera, matcher
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs
 
 _frame_counter = itertools.count()
 
@@ -90,7 +91,7 @@ class Frame:
                          for a in self._payload_tensors())
             for dst, src in zip(host, self._payload_tensors()):
                 dst.copy_(src, non_blocking=True)
-            done = torch.cuda.Event()
+            done = torch.cuda.Event(blocking=True)  # see graphs.fetch
             done.record()
             self._host_copy = (host, done)
 
@@ -105,7 +106,7 @@ class Frame:
                 done.synchronize()
                 arrays = tuple(a.numpy() for a in host)
             else:
-                arrays = tuple(a.cpu().numpy() for a in self._payload_tensors())
+                arrays = graphs.fetch(*self._payload_tensors())
             (self._kp_xy, self._kp_octave, self._kp_angle, self._kp_response,
              self._desc, self._kp_valid, self._kp_und) = arrays
             self._host_copy = None

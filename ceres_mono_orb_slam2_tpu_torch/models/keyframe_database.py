@@ -18,6 +18,7 @@ from typing import Dict, List
 import numpy as np
 
 from ceres_mono_orb_slam2_tpu_torch.ops import bow
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE
 
 log = logging.getLogger(__name__)
@@ -34,7 +35,7 @@ class KeyFrameDatabase:
 
     def compute_bow(self, desc_u8: np.ndarray, valid: np.ndarray) -> Dict[int, float]:
         wids, _ = self.transform(desc_u8, valid)
-        return bow.bow_vector(wids.cpu().numpy(), self.voc.word_weight, self.voc.n_words)
+        return bow.bow_vector(graphs.fetch(wids)[0], self.voc.word_weight, self.voc.n_words)
 
     def kf_bow(self, kf) -> Dict[int, float]:
         if kf.bow_vec is None:

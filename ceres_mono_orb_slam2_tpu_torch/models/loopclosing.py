@@ -16,8 +16,10 @@ Here it is a pipeline stage driven by the System facade: after each frame
 `threaded_gba=True` also runs each global BA on a thread of its own named
 `gba`, which a later loop aborts (`stop_gba`, `full_ba_index`) and joins
 before it corrects. Matching, RANSAC and the optimizers run on the device at
-the actual problem sizes; the Sim(3) RANSAC draws come from `uniform_noise`,
-which tests replace to inject draws. With `graphs=True` (the default) each
+the actual problem sizes, on the mapper stream (`utils/graphs.py`) on every
+thread, each stage's results read back with one `graphs.fetch`; the Sim(3)
+RANSAC draws come from `uniform_noise`, which tests replace to inject
+draws. With `graphs=True` (the default) each
 GN iteration of the essential graph and each LM iteration of the global BA
 (dense or CG) replay a captured program (`utils/graphs.py`), the JAX
 package's jitted solves; `graphs=False` runs them op by op. The Sim(3)
@@ -80,8 +82,9 @@ class LoopClosing:
         # Sim(3) RANSAC noise; `uniform_noise(shape)` may be replaced
         self.generator = generator or torch.Generator(device=self.device).manual_seed(42)
         self.uniform_noise = self._draw_uniform
-        self.jK = self._dev(np.asarray(config.camera.K, np.float32))
-        self.j_sfs = self._dev(config.orb.scale_factors.astype(np.float32))
+        with graphs_mod.on_owner_stream(self.device, "mapper"):
+            self.jK = self._dev(np.asarray(config.camera.K, np.float32))
+            self.j_sfs = self._dev(config.orb.scale_factors.astype(np.float32))
         self.inv_sigma2 = config.orb.inv_level_sigma2
         self.gba_force_cg = False  # True: the matrix-free global BA at any map size
         self.threaded_gba = threaded_gba
@@ -131,6 +134,12 @@ class LoopClosing:
         self.queue.append(kf_id)
 
     def process_queue(self):
+        """Run detection, Sim(3) and correction for every queued keyframe,
+        on the mapper stream."""
+        with graphs_mod.on_owner_stream(self.device, "mapper"):
+            self._drain()
+
+    def _drain(self):
         m = self.map
         while True:
             with m.update_lock:  # a reset may clear the queue meanwhile
@@ -241,8 +250,7 @@ class LoopClosing:
             d(kf2.kp_angle), matcher.unpack_u8(kf2.desc, self.device), d(has2),
             ratio=0.75,
         )
-        vi = valid.cpu().numpy()
-        ii = idx.cpu().numpy()
+        ii, vi = graphs_mod.fetch(idx, valid)
         pairs = []
         for i in np.nonzero(vi)[0]:
             mp1 = m.get_mp(int(kf1.mp_ids[i]))
@@ -306,7 +314,7 @@ class LoopClosing:
             matcher.unpack_u8(desc, self.device), d(ok),
             self.j_sfs, th=th, dist_th=dist_th,
         )
-        return idx.cpu().numpy(), valid.cpu().numpy()
+        return graphs_mod.fetch(idx, valid)
 
     def _search_by_sim3(self, kf1: KeyFrame, kf2: KeyFrame, matched1: set, matched2: set,
                         R12, t12, s12, th: float = 7.5):
@@ -395,23 +403,23 @@ class LoopClosing:
                                     device=self.device)
             res = sim3solver.ransac_sim3(noise, self.jK, self.jK, *arrays,
                                          fix_scale=self.fix_scale)
-            if not bool(res.success):
+            success, R12_0, t12_0, s12_0 = graphs_mod.fetch(res.success, res.R, res.t, res.s)
+            if not bool(success):
                 continue
             # widen matches with the mutual sim3-directed search before the
             # refinement (reference LoopClosing.cc:319 SearchBySim3 th=7.5)
             extra = self._search_by_sim3(
-                kf, ckf, {p[0] for p in pairs}, {p[1] for p in pairs},
-                res.R.cpu().numpy(), res.t.cpu().numpy(), float(res.s),
-            )
+                kf, ckf, {p[0] for p in pairs}, {p[1] for p in pairs}, R12_0, t12_0, float(s12_0))
             if extra:
                 pairs = pairs + extra
                 arrays = build_arrays(pairs)
             opt = sim3opt.optimize_sim3(self.jK, self.jK, *arrays, res.R, res.t, res.s)
-            if int(opt.n_inliers) < 20:
+            n_inl, R12, t12, s12, inl = graphs_mod.fetch(opt.n_inliers, opt.R, opt.t, opt.s, opt.inliers)
+            if int(n_inl) < 20:
                 continue
             # S_cw: current camera from world via the loop keyframe:
             # S12 maps cand-camera -> current-camera; Scw = S12 * T2w
-            R12, t12, s12 = opt.R.cpu().numpy(), opt.t.cpu().numpy(), float(opt.s)
+            s12 = float(s12)
             Rcw_s = R12 @ ckf.Rcw
             tcw_s = s12 * (R12 @ ckf.tcw) + t12
             # projection search through Scw over the loop keyframe's neighborhood
@@ -437,7 +445,6 @@ class LoopClosing:
             for q in np.nonzero(vi)[0]:
                 total[int(ii[q])] = loop_mp_ids[q]
             # include the verified sim3 inlier pairs
-            inl = opt.inliers.cpu().numpy()
             for j, (i1, i2, mp1, mp2) in enumerate(pairs):
                 if inl[j]:
                     total[i1] = mp2.id
@@ -611,10 +618,11 @@ class LoopClosing:
         def gba(loop_id=kf.id, index=self.full_ba_index):
             log.info("Starting Global Bundle Adjustment")
             t0 = time.perf_counter()
-            ok = run_global_ba(m, self.config, loop_id, n_iters=50,
-                               stop_cb=lambda: self.stop_gba or index != self.full_ba_index,
-                               force_cg=self.gba_force_cg, device=self.device, stats=stat,
-                               **self._gba_steps)
+            with graphs_mod.on_owner_stream(self.device, "mapper"):
+                ok = run_global_ba(m, self.config, loop_id, n_iters=50,
+                                   stop_cb=lambda: self.stop_gba or index != self.full_ba_index,
+                                   force_cg=self.gba_force_cg, device=self.device, stats=stat,
+                                   **self._gba_steps)
             stat["gba_ms"] = (time.perf_counter() - t0) * 1e3
             log.info("Global Bundle Adjustment %s", "finished" if ok else "aborted")
             if ok:
@@ -754,7 +762,7 @@ class LoopClosing:
             d(np.array(sm_l, np.float32)), torch.ones(len(ei), dtype=torch.bool, device=self.device),
             d(fixed), gn_iters=EG_GN_ITERS, cg_iters=EG_CG_ITERS, step=self._eg_step,
         )
-        Rn, tn, sn = (a.cpu().numpy() for a in (res.R, res.t, res.s))
+        Rn, tn, sn = graphs_mod.fetch(res.R, res.t, res.s)
         self._eg_solve_ms = (time.perf_counter() - t0) * 1e3
         # recover SE3 (t/s) + remap map points via their reference keyframes:
         # X' = S_new^-1 (S_init (X)) with S_init the vertex INITIAL sim3

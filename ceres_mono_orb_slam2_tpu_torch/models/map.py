@@ -30,6 +30,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs
+
 COVIS_TH = 15  # minimum shared-point weight for a covisibility edge
 
 
@@ -176,7 +178,7 @@ class KeyFrame:
     __slots__ = (
         "id", "frame_id", "timestamp", "Rcw", "tcw",
         "_kp_xy", "_kp_und", "_kp_octave", "_kp_angle", "_kp_response",
-        "_desc", "_kp_valid", "_src_frame", "dev",
+        "_desc", "_kp_valid", "_src_frame", "dev", "_dev_ready",
         "mp_ids", "covisible", "ordered_neighbors", "parent", "children",
         "loop_edges", "bad", "not_erase", "to_be_erased", "bow_vec",
         "Tcw_gba", "gba_for_kf",
@@ -201,10 +203,13 @@ class KeyFrame:
         # device-resident keypoint payload (und, octave, angle, desc, valid)
         # shared with the source frame: the mapper's batched stages consume
         # neighbour keyframe payloads on the device. None for keyframes built
-        # from host arrays only; dev_payload() uploads those once.
+        # from host arrays only; dev_payload() uploads those once. The
+        # tracker wrote them on its stream: they are handed over to the
+        # mapper stream, which waits for `_dev_ready` before it reads them.
         j = getattr(frame, "j_und", None)
         self.dev = None if j is None else (frame.j_und, frame.j_octave, frame.j_angle,
                                            frame.j_desc, frame.j_valid)
+        self._dev_ready = None if self.dev is None else graphs.share_with("mapper", self.dev)
         self.mp_ids = frame.mp_ids.copy()  # (N,) int64, -1 = unassociated
         self.covisible: Dict[int, int] = {}  # kf_id -> weight
         self.ordered_neighbors: List[int] = []
@@ -234,12 +239,15 @@ class KeyFrame:
             self._src_frame = None
 
     def dev_payload(self, device):
-        """(und, octave, angle, desc, valid) tensors on `device`. Keyframes
-        created live share the source frame's tensors (zero transfer); others
-        upload their host payload once on first use."""
+        """(und, octave, angle, desc, valid) tensors on `device`, ready for
+        the current stream. Keyframes created live share the source frame's
+        tensors (zero transfer; the current stream waits for the stream that
+        wrote them); others upload their host payload once on first use."""
         if self.dev is None:
             self.dev = tuple(torch.as_tensor(np.ascontiguousarray(a)).to(device) for a in (
                 self.kp_und, self.kp_octave, self.kp_angle, self.desc, self.kp_valid))
+            self._dev_ready = None
+        graphs.wait_for(self._dev_ready)
         return self.dev
 
     @property

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ceres_mono_orb_slam2_tpu_torch.ops import optim
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 # past this many pose-point block pairs the dense Schur's (M, P, 6, 3) cross
@@ -115,7 +116,7 @@ def run_global_ba(m, config, loop_kf_id: int, n_iters: int = 50, stop_cb=None,
         if stop_cb is not None and stop_cb():
             return False  # aborted: discard
 
-    Rn, tn, ptsn = (a.cpu().numpy() for a in (R, t, pts))
+    Rn, tn, ptsn = graphs.fetch(R, t, pts)
     with m.update_lock:
         # side fields for the keyframes of the snapshot
         for kf_id, i in kf_slot.items():
@@ -189,7 +190,7 @@ def global_bundle_adjustment(m, config, n_iters: int = 20, fixed_kf_ids=None,
     res = optim.bundle_adjustment(K, R, t, pts, op, oj, ouv, ow, ovalid,
                                   torch.as_tensor(fixed, device=device), pvalid,
                                   iters_huber=n_iters, iters_trimmed=0, robust_step=robust_step)
-    Rn, tn, ptsn = (a.cpu().numpy() for a in (res.R, res.t, res.points))
+    Rn, tn, ptsn = graphs.fetch(res.R, res.t, res.points)
     for kf in kfs:
         s = kf_slot[kf.id]
         if not fixed[s]:

@@ -365,7 +365,7 @@ class Tracking:
         one packed control copy to the host, then `_fused_consume` under
         map.update_lock."""
         out, f1, ctl, _ = self._fused_dispatch(args)
-        host = ctl.cpu().numpy()
+        host, = graphs_mod.fetch(ctl)
         with self.map.update_lock:
             if not self._retrack_if_corrected(args[0], aux[5], aux[-1]):
                 self._fused_consume(aux, out, f1, host)
@@ -637,7 +637,7 @@ class Tracking:
             return ctl, None
         host = torch.empty(ctl.shape, dtype=ctl.dtype, pin_memory=True)
         host.copy_(ctl, non_blocking=True)
-        done = torch.cuda.Event()
+        done = torch.cuda.Event(blocking=True)  # see graphs.fetch
         done.record()
         return host, done
 
@@ -885,9 +885,8 @@ class Tracking:
         idx, res = attempt
         if not bool(res.success):
             return
-        self._create_initial_map(ref, f, idx.cpu().numpy(), res.triangulated.cpu().numpy(),
-                                 res.R21.cpu().numpy(), res.t21.cpu().numpy(),
-                                 res.points3d.cpu().numpy())
+        self._create_initial_map(ref, f, *graphs_mod.fetch(idx, res.triangulated, res.R21, res.t21,
+                                                           res.points3d))
 
     def _two_view_attempt(self, ref: Frame, f: Frame):
         """One initialization attempt's device work: the bootstrap matcher,
@@ -1000,8 +999,8 @@ class Tracking:
             return 0
         w = self.inv_sigma2[frame.kp_octave].astype(np.float32)
         res = self._solve_pose(self.jK, frame.Rcw, frame.tcw, pos, frame.j_und, w, ok)
-        frame.set_pose(res.R.cpu().numpy(), res.t.cpu().numpy())
-        inl = res.inliers.cpu().numpy()
+        R, t, inl = graphs_mod.fetch(res.R, res.t, res.inliers)
+        frame.set_pose(R, t)
         frame.outlier = ok & ~inl
         return int(inl.sum())
 
@@ -1035,7 +1034,7 @@ class Tracking:
             idx, _, valid = matcher.search_by_projection_frame(
                 f.j_und, f.j_octave, f.j_angle, f.j_bits, f.j_valid,
                 pr_uv, lf.j_octave, lf.j_angle, lf.j_bits, pr_valid, self.j_scale, th=th)
-            idx, vi = idx.cpu().numpy(), valid.cpu().numpy()
+            idx, vi = graphs_mod.fetch(idx, valid)
             n = int(vi.sum())
             if n >= 20:
                 break
@@ -1102,7 +1101,7 @@ class Tracking:
         idx, _, valid = matcher.search_by_descriptor(
             f.j_angle, f.j_bits, f.j_valid, self._dev(kf.kp_angle),
             matcher.unpack_u8(kf.desc, self.device), self._dev(kf_has_mp), ratio=0.7)
-        idx, vi = idx.cpu().numpy(), valid.cpu().numpy()
+        idx, vi = graphs_mod.fetch(idx, valid)
         if int(vi.sum()) < 15:
             return False
         f.mp_ids[:] = -1
@@ -1197,7 +1196,7 @@ class Tracking:
                 self._dev(m.mp_pos[ga]), self._dev(m.mp_normal[ga]), self._dev(m.mp_mind[ga]),
                 self._dev(m.mp_maxd[ga]), torch.ones(len(cand), dtype=torch.bool, device=self.device),
                 self.log_scale, self.n_levels)
-            for i in np.nonzero(visible.cpu().numpy())[0]:
+            for i in np.nonzero(graphs_mod.fetch(visible)[0])[0]:
                 mp = self.map.map_points[cand[i]]
                 mp.n_visible += 1
                 mp.last_frame_seen = f.id
@@ -1207,7 +1206,7 @@ class Tracking:
             idx, _, valid = matcher.search_by_projection_points(
                 f.j_und, f.j_octave, f.j_bits, f.j_valid, kp_free,
                 uv, level, viewcos, mp_bits, visible, self.j_scale, th=th)
-            ii, vi = idx.cpu().numpy(), valid.cpu().numpy()
+            ii, vi = graphs_mod.fetch(idx, valid)
             for q in np.nonzero(vi)[0]:
                 f.mp_ids[ii[q]] = cand[q]
 
@@ -1287,7 +1286,7 @@ class Tracking:
             torch.zeros(M, dtype=torch.float32, device=self.device),
             matcher.unpack_u8(self.map.mp_desc[ga], self.device), self._dev(zok & fresh),
             self.j_scale, th=th, check_rotation=False, dist_th=dist_th)
-        ii, vi = idx.cpu().numpy(), valid.cpu().numpy()
+        ii, vi = graphs_mod.fetch(idx, valid)
         for q in np.nonzero(vi)[0]:
             f.mp_ids[ii[q]] = cand_mp[q]
 
@@ -1320,14 +1319,13 @@ class Tracking:
             idx, _, valid = matcher.search_by_descriptor(
                 f.j_angle, f.j_bits, f.j_valid, self._dev(kf.kp_angle),
                 matcher.unpack_u8(kf.desc, self.device), self._dev(kf_has_mp), ratio=0.75)
-            vi = valid.cpu().numpy()
+            kidx, vi = graphs_mod.fetch(idx, valid)
             if vi.sum() < 15:
                 continue
             # 2D-3D sets aligned to the current frame's keypoints
             pos = np.zeros((n, 3), np.float32)
             ok = np.zeros(n, bool)
             ids = np.full(n, -1, np.int64)
-            kidx = idx.cpu().numpy()
             for q in np.nonzero(vi)[0]:
                 mp = self.map.get_mp(int(kf.mp_ids[kidx[q]]))
                 if mp is not None:
@@ -1355,7 +1353,7 @@ class Tracking:
         res = pnp.ransac_pnp_multi(
             noise, self.jK, self._dev(pos_b), f.j_und[None].expand(Cb, n, 2),
             self._dev(w)[None].expand(Cb, n), self._dev(ok_b), stages=self._ransac_stages())
-        succ, Rs, ts, inls, ns = (a.cpu().numpy()[:C] for a in res)
+        succ, Rs, ts, inls, ns = (a[:C] for a in graphs_mod.fetch(*res))
         for ci in np.argsort(-ns, kind="stable"):
             if not succ[ci]:
                 continue

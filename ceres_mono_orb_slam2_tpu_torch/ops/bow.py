@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ceres_mono_orb_slam2_tpu_torch.ops import matcher
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -423,7 +424,10 @@ def make_transform_fn(voc: Vocabulary, device=DEFAULT_DEVICE):
     `jnp.argmin`), descend. Descriptors reaching a leaf stay there (padded
     children rows point at the node itself). Packed uint8 storage keeps a
     1.1M-node ORBvoc-scale tree at 35.6 MB on the device and the per-level
-    gather at K * 32 contiguous bytes per descriptor."""
+    gather at K * 32 contiguous bytes per descriptor. The tables are
+    written on the current stream and handed over to the mapper stream,
+    where loop closing's transforms run (`utils/graphs.share_with`); every
+    call waits for them on its own stream."""
     device = resolve_device(device)
     desc_t = torch.as_tensor(np.ascontiguousarray(voc.node_desc)).to(device)
     n_levels = int(voc.levels) + 2
@@ -432,9 +436,11 @@ def make_transform_fn(voc: Vocabulary, device=DEFAULT_DEVICE):
     self_col = np.arange(len(ch), dtype=np.int32)[:, None]
     ch_t = torch.as_tensor(np.where(ch < 0, self_col, ch).astype(np.int32)).to(device)
     wid_t = torch.as_tensor(np.asarray(voc.word_id, np.int32)).to(device)
+    ready = graphs.share_with("mapper", (desc_t, ch_t, wid_t))
 
     @torch.no_grad()
     def transform(desc_u8, valid):
+        graphs.wait_for(ready)
         desc_u8 = torch.as_tensor(desc_u8).to(device)
         valid = torch.as_tensor(valid).to(device)
         node = torch.zeros(desc_u8.shape[0], dtype=torch.int64, device=device)

@@ -120,7 +120,7 @@ class MultiStreamSLAM:
                 up(0), *(torch.stack([a[k] for a in args]) for k in (1, 2, 3)),
                 *(up(k) for k in (4, 5, 6, 7, 8)), lblock, args[0][12], up(9))
         t_fetch = time.perf_counter()
-        return out, feats, packed.cpu().numpy(), t_fetch
+        return out, feats, graphs_mod.fetch(packed)[0], t_fetch
 
     # ----------------------------------------------------------------- track
 

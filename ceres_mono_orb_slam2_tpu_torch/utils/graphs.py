@@ -27,43 +27,58 @@ Each call of a `CapturedFunction`:
   on that stream while holding `lock` (the map lock for the tracker's
   programs: a mapper thread then runs no map stage) and then the process's
   capture lock, with `capture_error_mode="thread_local"`, so that the eager
-  work other threads issue meanwhile is not refused;
-- on later calls, replays the graph on the default stream;
+  work other threads issue meanwhile is not refused, and with the cyclic
+  garbage collector off (a collection on the capturing thread may destroy a
+  dropped system's graph, which invalidates the capture);
+- on later calls, replays the graph on its owner's stream;
 - hands out clones of the outputs, since the next replay overwrites them.
 
-Every call runs on the device's default stream, the stream every thread of
-the port uses: a call under another stream raises `RuntimeError`, since the
-shared memory pool below rests on it.
+Owners and their streams. The tracker's programs (the frontend, the unfused
+pose solve, the batched step of `MultiStreamSLAM`) belong to the thread that
+tracks, owner "tracker", and run on the device's default stream. Local
+mapping's programs (the local-BA iterations) belong to the mapper thread,
+and loop closing's (the essential graph's GN iteration, the global BA's LM
+iterations) to the mapper thread and the `gba` thread, owner "mapper"; they
+run on the mapper stream, one stream a device from torch's pool, which is
+non-blocking: it never waits for the default stream unless told to, so a
+host read of the mapper's results waits for the mapper's own work and not
+for the frame the tracker has queued meanwhile. `owner_stream(device,
+owner)` gives an owner's stream and `on_owner_stream` enters it; every
+thread that does the mapper's device work enters the mapper stream, serially
+the caller's thread too, so both modes run the same code on the same
+streams. A call of a `CapturedFunction` off its owner's stream raises
+`RuntimeError`, since the owner's shared memory pool below rests on it. A
+tensor one stream wrote and the other reads is handed over explicitly
+(`share_with`, `wait_for`: an event the reading stream waits on, and the
+allocator told that the reading stream uses the tensor); the results of the
+mapper come back to the host with `fetch`, one synchronisation of the
+mapper stream a stage.
 
-Owners. The tracker's programs (the frontend, the unfused pose solve, the
-batched step of `MultiStreamSLAM`) belong to the thread that tracks, owner
-"tracker". Local mapping's programs (the local-BA iterations) belong to the
-mapper thread, and loop closing's (the essential graph's GN iteration, the
-global BA's LM iterations) to the mapper thread and the `gba` thread, owner
-"mapper"; serially the caller's thread runs them. Each owner has its own
-side stream. Several threads may own "mapper" programs (a threaded
-`MultiStreamSLAM` runs a mapper thread per stream), so those warm up under
-the capture lock as well. One
+Each owner also has its own side stream, which joins the owner's stream
+before and after a warm-up. Several threads may own "mapper" programs (a
+threaded `MultiStreamSLAM` runs a mapper thread per stream, all on the one
+mapper stream), so those warm up under the capture lock as well. One
 capture runs at a time in the process: the caching allocator refuses to
 empty its cache while a capture is under way, and captures do not wait for
 the device. The lock order is `lock`, then the capture lock, on every
 thread; a mapper program takes no `lock`, since local mapping runs its
 device solves without the map lock. A capture may thus run on the mapper
-thread while the caller's thread tracks: the caller synchronises the
+thread while the caller's thread tracks: each thread synchronises the
 stream it uses, never the whole device (`torch.cuda.synchronize()` from
-another thread invalidates a capture in progress, and the mapper thread
+another thread invalidates a capture in progress, and the capturing thread
 then fails).
 
 The programs of one owner share one memory pool in the process (one a
 device, kept alive by a sentinel graph), across functions and systems, so
 that it holds about one program's intermediates rather than the sum over
 every function of every system (a threaded `MultiStreamSLAM` runs 8 mapper
-threads). Two rules make the sharing safe. Every replay runs on the default
-stream (checked at every call), so no two programs ever run at once. A new
-capture reuses what the earlier ones freed, so one program's static outputs
-may lie in another's intermediates: a replay and the clone of its outputs
-are enqueued under one process-wide lock, with no other thread's replay
-between them. A capture that fails raises with the first error of the
+threads). Two rules make the sharing safe. Every replay of an owner's
+programs runs on that owner's one stream (checked at every call), so no two
+programs of a pool ever run at once. A new capture reuses what the earlier
+ones freed, so one program's static outputs may lie in another's
+intermediates: a replay and the clone of its outputs are enqueued under one
+process-wide lock, with no other thread's replay between them. A capture
+that fails raises with the first error of the
 first failed capture in the process (`capture_errors`): a failure can leave
 the pool recording, and every later capture into it then fails with a
 message of its own.
@@ -86,7 +101,7 @@ kernel sets its condition from `pred` at every replay. Each owner's side
 stream has a body stream, on which its bodies are captured, and a body pool
 (a `torch.cuda.MemPool`) that their intermediates come from: one body's
 intermediates are free again for the next, and, as with the owner's pool,
-programs that replay one at a time on the default stream may share them.
+programs that replay one at a time on their owner's stream may share them.
 `if_nodes` counts the nodes captured.
 
 On the CPU the function runs on the static buffers at every call, without
@@ -105,6 +120,7 @@ replays move meanwhile.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 from typing import Callable, Optional
 
@@ -183,6 +199,11 @@ if_nodes: dict = {}
 _if_bodies = {}
 _side_streams = {}
 _pools = {}
+# (device index, owner) -> the stream of an owner whose work does not run
+# on the default stream (the mapper's)
+_owner_streams = {}
+# the streams above are made once, by whichever thread asks first
+_stream_lock = threading.Lock()
 # the first error of every failed capture, in order (see the module docstring)
 capture_errors: list = []
 
@@ -191,6 +212,103 @@ _capture_lock = threading.Lock()
 # a replay and the clone of its outputs, enqueued with no other replay
 # between them (see the module docstring)
 _replay_lock = threading.Lock()
+
+
+def owner_stream(device, owner: str) -> Optional[torch.cuda.Stream]:
+    """The stream `owner`'s device work runs on: for "mapper" one stream a
+    device from torch's pool (non-blocking: no implicit wait for the default
+    stream), made on first use and kept; the default stream for any other
+    owner; None off CUDA."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    if owner != "mapper":
+        return torch.cuda.default_stream(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    s = _owner_streams.get((index, owner))
+    if s is None:
+        with _stream_lock:
+            s = _owner_streams.get((index, owner))
+            if s is None:
+                s = _owner_streams[(index, owner)] = _new_stream(torch.device("cuda", index))
+    return s
+
+
+def on_owner_stream(device, owner: str):
+    """A context that makes `owner_stream(device, owner)` the current stream
+    (nothing off CUDA)."""
+    s = owner_stream(device, owner)
+    return contextlib.nullcontext() if s is None else torch.cuda.stream(s)
+
+
+def stream_name(stream) -> str:
+    """The name of a CUDA stream in reports: "default", an owner's name,
+    or the handle of any other stream."""
+    if stream == torch.cuda.default_stream(stream.device):
+        return "default"
+    for (_, owner), s in _owner_streams.items():
+        if s == stream:
+            return owner
+    return hex(stream.cuda_stream)
+
+
+def share_with(owner: str, tensors):
+    """Hand CUDA tensors written on the current stream over to `owner`'s
+    stream: the allocator keeps each one's memory until the work that
+    owner's stream has queued when it is freed is done (`record_stream`),
+    and the returned event, recorded on the current stream behind the
+    writes, is what a reader on that stream waits on (`wait_for`). None
+    when no tensor is on CUDA."""
+    tensors = [t for t in tensors if isinstance(t, torch.Tensor) and t.device.type == "cuda"]
+    if not tensors:
+        return None
+    dst = owner_stream(tensors[0].device, owner)
+    for t in tensors:
+        t.record_stream(dst)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(tensors[0].device))
+    return ready
+
+
+def wait_for(ready) -> None:
+    """Make the current stream wait for a `share_with` event (on the device
+    only; nothing for None)."""
+    if ready is not None:
+        torch.cuda.current_stream().wait_event(ready)
+
+
+def fetch(*tensors) -> tuple:
+    """Numpy arrays of `tensors`, with the bits of `t.cpu().numpy()` each,
+    each copied into a dense host tensor of its own: CUDA tensors with one
+    non-blocking copy each into pinned host memory and one event on the
+    current stream, waited for once, in place of one synchronisation a
+    tensor; their arrays own their memory (the pinned buffers go back to
+    the allocator). The event blocks (the thread sleeps until the copy is
+    done, the GIL released): a thread that waits in `.cpu()` for a queued
+    frame stalls every other thread's launches until the frame is done
+    (`tools/stream_probe.py`)."""
+    on_card = [t.device.type == "cuda" for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=c) for t, c in zip(tensors, on_card)]
+    for h, t, c in zip(host, tensors, on_card):
+        h.copy_(t, non_blocking=c)
+    if any(on_card):
+        done = torch.cuda.Event(blocking=True)
+        done.record()
+        done.synchronize()
+    return tuple(h.numpy().copy() if c else h.numpy() for h, c in zip(host, on_card))
+
+
+def _new_stream(device: torch.device) -> torch.cuda.Stream:
+    """A stream from torch's pool that no owner, side or body stream of
+    this module holds yet (the pool hands its streams out round robin)."""
+    taken = ({s.cuda_stream for s in _owner_streams.values()}
+             | {s.cuda_stream for s in _side_streams.values()}
+             | {body.cuda_stream for body, _ in _if_bodies.values()})
+    for _ in range(64):
+        s = torch.cuda.Stream(device)
+        if s.cuda_stream not in taken:
+            return s
+    raise RuntimeError("no CUDA stream of torch's pool is free for an owner")
 
 
 def _owner_pool(device: torch.device, owner: str):
@@ -203,7 +321,7 @@ def _owner_pool(device: torch.device, owner: str):
     entry = _pools.get((device, owner))
     if entry is None:
         pool, sentinel = torch.cuda.graph_pool_handle(), torch.cuda.CUDAGraph()
-        with torch.cuda.stream(_capture_stream(device, owner)):
+        with torch.cuda.stream(_capture_stream(device, owner)), _no_gc():
             sentinel.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 torch.zeros(1, device=device)
@@ -213,13 +331,30 @@ def _owner_pool(device: torch.device, owner: str):
     return entry[0]
 
 
+@contextlib.contextmanager
+def _no_gc():
+    """The cyclic garbage collector off for the block: a collection on the
+    capturing thread may free a dropped system's graphs, and destroying a
+    graph there while this thread captures invalidates the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def _capture_stream(device: torch.device, owner: str) -> torch.cuda.Stream:
     """The side stream on which `owner`'s programs of `device` warm up and
     capture (a cuBLAS workspace belongs to its stream)."""
     s = _side_streams.get((device, owner))
     if s is None:
-        s = _side_streams[(device, owner)] = torch.cuda.Stream(device)
-        _if_bodies[s.cuda_stream] = (torch.cuda.Stream(device), torch.cuda.MemPool())
+        with _stream_lock:
+            s = _side_streams.get((device, owner))
+            if s is None:
+                s = _side_streams[(device, owner)] = _new_stream(device)
+                _if_bodies[s.cuda_stream] = (_new_stream(device), torch.cuda.MemPool())
     return s
 
 
@@ -329,10 +464,11 @@ class CapturedFunction:
     # ------------------------------------------------------------------- call
 
     def __call__(self, *args):
-        if self.device.type == "cuda" and (torch.cuda.current_stream(self.device)
-                                           != torch.cuda.default_stream(self.device)):
-            raise RuntimeError(f"{self.name}: called on a stream other than the default stream, "
-                               "which the programs' shared memory pool requires")
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            if stream != owner_stream(self.device, self.owner):
+                raise RuntimeError(f"{self.name}: called on the {stream_name(stream)} stream, not on "
+                                   f"owner {self.owner!r}'s stream, which its shared memory pool requires")
         key, leaves, spec = self._key(args)
         prog = self._program(key)
         new = prog.n_calls == 0
@@ -394,9 +530,9 @@ class CapturedFunction:
         graph = torch.cuda.CUDAGraph()
         counted = dict(kernels.launch_counts)
         try:
-            with torch.no_grad(), torch.cuda.stream(_capture_stream(self.device, self.owner)):
-                graph.capture_begin(pool=_owner_pool(self.device, self.owner),
-                                    capture_error_mode="thread_local")
+            pool = _owner_pool(self.device, self.owner)
+            with torch.no_grad(), torch.cuda.stream(_capture_stream(self.device, self.owner)), _no_gc():
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
                     prog.outputs = self.fn(*static_args)
                 finally:
@@ -447,7 +583,8 @@ class CapturedFunction:
     def summary(self) -> dict:
         """Captures and replays over the function's life (dropped programs
         included), the programs kept and dropped, and its owner's pool and
-        body pool MB."""
+        body pool MB. Every replay ran on the owner's stream (a call off it
+        raises)."""
         return {"name": self.name, "captures": self.n_captures, "replays": self.n_replays,
                 "kept": len(self.programs), "dropped": self.n_evicted,
                 "pool_mb": self.pool_bytes() / 1e6, "body_pool_mb": self.body_pool_bytes() / 1e6}

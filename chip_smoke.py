@@ -22,7 +22,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      its captured programs (`utils/graphs.py`: the frontend, the pose solve,
      the batched step), and the kernel launches are counted through the
      replays;
-     `[graphs]`: replay against eager in one process, each frame through a
+     `[graphs]`: first the two streams' rules (`graphs_streams`: a captured
+     call off its owner's stream raises, `graphs.fetch` gives the bits of
+     `.cpu().numpy()`, a tensor handed to the mapper stream reads as
+     written); then replay against eager in one process, each frame through a
      system with graphs and one with graphs=False in turn: every fused or
      chained frame's FusedOut fields, features and control buffer and every
      pose equal to the bit on the spiral's first 16 frames serial and
@@ -48,8 +51,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      `cudaGraphLaunch`) and copies, and its kernels on the card against the
      replay-counted launches; the memory of every program;
      `[threaded]`: the first 32 frames through `MonoSLAM(threaded=True)` fed
-     at full rate (local mapping on the mapper thread), the same bars, the mapper
-     alive until `shutdown()`; `[pipelined]`: with `pipelined=True` as well,
+     at full rate (local mapping on the mapper thread and the mapper
+     stream; a frame after one that wanted a keyframe busy local mapping
+     could not take waits for it), the same bars, the mapper alive until
+     `shutdown()`, the mean stage ms beside the serial run's; `[pipelined]`: with `pipelined=True` as well,
      paced by `wait_mapper_idle()` after each frame, a coverage check of
      chaining rather than the mode's full-rate traffic (at full rate the
      tracker inserts a keyframe whenever the mapper goes idle, so the map
@@ -578,11 +583,9 @@ def phase_slam(seq, cfg):
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"slam checks failed: {failed}")
-    stages = ("process_new", "cull_mp", "triangulate", "fuse", "lba", "cull_kf")
     timing = {"median": float(np.median(steady)), "p95": float(np.percentile(steady, 95)),
-              "frame_ms": frame_ms,
-              "stage_ms": {st: round(float(np.mean([p[st] for p in slam.local_mapper.pass_ms if st in p] or [0.0])),
-                                     2) for st in stages}}
+              "frame_ms": frame_ms, "stage_ms": stage_means([slam.local_mapper]),
+              "stage_ms_after_first": stage_means([slam.local_mapper], skip=1)}
     return launches, poses, timing
 
 
@@ -637,8 +640,7 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
     steady = np.asarray(frame_ms[10:])
     serial_steady = np.asarray(serial["frame_ms"][10:n])
     serial_s = sum(serial["frame_ms"][:n]) / 1e3
-    stages = ("process_new", "cull_mp", "triangulate", "fuse", "lba", "cull_kf")
-    stage_ms = {st: float(np.mean([p[st] for p in lm.pass_ms if st in p] or [0.0])) for st in stages}
+    stage_ms = stage_means([lm])
     mapping_s = sum(sum(v for key, v in p.items() if key != "kf") for p in lm.pass_ms) / 1e3
     log(f"[{name}] init frame {first}, tracked {len(idx)}/{n} ({100 * frac:.1f}% after init), "
         f"keyframes {slam.map.n_keyframes()}, map points {slam.map.n_map_points()}, n_local_ba "
@@ -653,10 +655,11 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
         f"{total_s:.2f} s with {'the pacing and ' if pipelined else ''}the drain at shutdown beside the "
         f"serial run's {serial_s:.2f} s")
     log(f"[{name}] mapper: {len(lm.pass_ms)} passes, {mapping_s:.2f} s in all, mean stage ms "
-        f"{ {st: round(v, 2) for st, v in stage_ms.items()} } beside the serial run's {serial['stage_ms']}; "
-        f"frames that waited for local mapping "
-        f"{slam.n_keyframe_waits}, longest wait {slam.max_keyframe_wait_ms:.1f} ms; the mapper's programs "
-        f"(captures, replays, kept, dropped, shared pool MB) {program_summaries(slam)}")
+        f"{stage_ms} beside the serial run's {serial['stage_ms']} (same call), after the first pass "
+        f"{stage_means([lm], skip=1)} beside {serial['stage_ms_after_first']}, on the "
+        f"{mapper_stream_name()}; frames that waited for local mapping {slam.n_keyframe_waits}, longest "
+        f"wait {slam.max_keyframe_wait_ms:.1f} ms; the mapper's programs (captures, replays on the mapper "
+        f"stream, kept, dropped, shared pool MB) {program_summaries(slam)}")
     checks = {
         "initialises within 10 frames": first < 10,
         "tracks >= 90% after init": frac >= 0.9,
@@ -680,15 +683,46 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
 
 def timed(fn):
     """(result, ms) of fn(), on the host's clock around work that ends in a
-    synchronisation of the current stream, on which the port queues all its
-    work (its side streams join it). Not the whole device: a threaded
-    system's mapper may be capturing a program meanwhile, and a device-wide
-    synchronisation from another thread invalidates a capture."""
+    synchronisation of the current stream and of the mapper stream, the two
+    streams on which the port queues all its work (the tracker's on the
+    default stream, the mapper's on its own; their side streams join
+    them). Not the whole device: a threaded system's mapper may be
+    capturing a program meanwhile, and a device-wide synchronisation from
+    another thread invalidates a capture."""
+    from ceres_mono_orb_slam2_tpu_torch.utils import graphs
+
+    mapper = graphs.owner_stream("cuda", "mapper")
     torch.cuda.current_stream().synchronize()
+    mapper.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.current_stream().synchronize()
+    mapper.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def on_mapper_stream(fn):
+    """fn() on the mapper stream, as the loop closer runs its programs
+    there, after the current stream's queued work and before its next."""
+    from ceres_mono_orb_slam2_tpu_torch.utils import graphs
+
+    current, mapper = torch.cuda.current_stream(), graphs.owner_stream("cuda", "mapper")
+    mapper.wait_stream(current)
+    with torch.cuda.stream(mapper):
+        out = fn()
+    current.wait_stream(mapper)
+    return out
+
+
+STAGES = ("process_new", "cull_mp", "triangulate", "fuse", "lba", "cull_kf")
+
+
+def stage_means(local_mappers, skip: int = 0) -> dict:
+    """Mean wall ms of each mapping stage over the passes of every
+    `LocalMapping` given, without each one's first `skip` passes (a
+    threaded mapper's first pass waits for the tracker's first captures)."""
+    passes = [p for lm in local_mappers for p in lm.pass_ms[skip:]]
+    return {st: round(float(np.mean([p[st] for p in passes if st in p] or [0.0])), 2) for st in STAGES}
 
 
 def trace_events(prof) -> list:
@@ -987,7 +1021,7 @@ def solver_ba_cg():
     cg, ms = timed(run)
     again, n_launches = profiled(run)
     step = graphs.CapturedFunction(optim.cg_lm_iteration, "cuda", name="gba_lm_cg", owner="mapper")
-    replay = lambda: optim.bundle_adjustment_cg(*args, iters=20, step=step)  # noqa: E731
+    replay = lambda: on_mapper_stream(lambda: optim.bundle_adjustment_cg(*args, iters=20, step=step))  # noqa: E731
     first = replay()
     rep, ms_rep = timed(replay)
     same_rep = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(cg, rep, first))
@@ -1284,8 +1318,8 @@ def phase_loop():
             f"{slam.map.n_map_points()}, n_loops_closed {lc.n_loops_closed}, n_gba_runs {lc.n_gba_runs}, "
             f"n_detects {lc.n_detects}, ATE {run['ate_pct']:.4f}%, map_changed() true at frames "
             f"{[i for i, c in enumerate(run['changed']) if c]}")
-        log(f"[loop] run {r}: the mapper's programs (captures, replays, kept, dropped, shared pool MB): "
-            f"{program_summaries(slam)}")
+        log(f"[loop] run {r}: the mapper's programs (captures, replays on the mapper stream, kept, dropped, "
+            f"shared pool MB): {program_summaries(slam)}")
         for st in lc.loop_stats:
             log(f"[loop] run {r}: loop at keyframe {st['kf']} <-> {st['match_kf']}: Sim(3) RANSAC and "
                 f"refinement {st['sim3_ms']:.1f} ms, correction and fusion {st['correct_fuse_ms']:.1f} ms, "
@@ -1453,7 +1487,7 @@ def phase_multisystem(seq, cfg, serial_poses, serial: dict):
     log(f"[multisystem] rendered {S - 1} more sequences of {MS_FRAMES} frames {W}x{H} (seed, step) "
         f"{variants} in {time.perf_counter() - t0:.1f} s")
     centre = lambda T: -T[:3, :3].T @ T[:3, 3]  # noqa: E731
-    paths, unthreaded_ms = {}, None
+    paths, unthreaded_ms, stages = {}, None, {}
     for threaded, n_frames in ((False, MS_FRAMES), (True, MS_THREADED_FRAMES)):
         name = "multisystem_threaded" if threaded else "multisystem"
         system, poses, frame_ms, launches, alive = run_multisystem(seqs, cfg, threaded, n_frames)
@@ -1501,6 +1535,12 @@ def phase_multisystem(seq, cfg, serial_poses, serial: dict):
             f"{np.median(steady):.2f}, p95 {np.percentile(steady, 95):.2f} = "
             f"{S / np.median(steady) * 1e3:.2f} frames/s in aggregate, beside {beside}; peak device "
             f"memory {peak / 1e6:.1f} MB")
+        mappers = [m.local_mapper for m in system.streams]
+        stages[name] = stage_means(mappers), stage_means(mappers, skip=1)
+        log(f"[{name}] mean stage ms over every stream's mapping passes {stages[name][0]}, after each "
+            f"stream's first {stages[name][1]}"
+            + (f" beside the unthreaded run's {stages['multisystem'][0]}, {stages['multisystem'][1]} (same "
+               f"call)" if threaded else "") + f", every mapper on the {mapper_stream_name()}")
         checks = {
             "every stream initialises within 10 frames": max(first) < 10,
             "every stream tracks >= 90% after init": min(frac) >= 0.9,
@@ -2138,7 +2178,8 @@ def phase_sharded(cfg):
     # the same solve as the loop closer's CG global BA runs it: each LM
     # iteration a replay of one captured program (the first call captures)
     cg_step = graphs.CapturedFunction(optim.cg_lm_iteration, "cuda", name="gba_lm_cg", owner="mapper")
-    replay_ba = lambda: optim.bundle_adjustment_cg(*dev_ba, iters=20, step=cg_step)  # noqa: E731
+    replay_ba = lambda: on_mapper_stream(  # noqa: E731
+        lambda: optim.bundle_adjustment_cg(*dev_ba, iters=20, step=cg_step))
     (first_ba, ms_first_ba), (rep_ba, ms_rep_ba) = timed(replay_ba), timed(replay_ba)
     same_rep_ba = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(single_ba, first_ba, rep_ba))
     (Rt, tt), (R0, t0, s0, ei, ej, Rm, tm, sm, fixed) = drifted_ring(SHARDED_RING, seed=2)
@@ -2342,12 +2383,26 @@ def first_difference(a: list, b: list):
     return None
 
 
+def mapper_programs(slam) -> list:
+    """The mapper's `CapturedFunction`s: local mapping's, then loop
+    closing's."""
+    return slam.local_mapper.captured() + (slam.loop_closer.captured() if slam.loop_closer else [])
+
+
 def program_summaries(slam) -> list:
     """(name, captures, replays, kept, dropped, shared pool MB) of each of
-    the mapper's captured programs (local mapping's, then loop closing's)."""
-    fns = slam.local_mapper.captured() + (slam.loop_closer.captured() if slam.loop_closer else [])
+    the mapper's captured programs; every replay ran on the mapper stream,
+    since a call off its owner's stream raises (`[graphs]` checks that)."""
     return [(d["name"], d["captures"], d["replays"], d["kept"], d["dropped"], round(d["pool_mb"], 1))
-            for d in (f.summary() for f in fns)]
+            for d in (f.summary() for f in mapper_programs(slam))]
+
+
+def mapper_stream_name() -> str:
+    """The mapper stream of the card, as the reports name it."""
+    from ceres_mono_orb_slam2_tpu_torch.utils import graphs
+
+    s = graphs.owner_stream("cuda", "mapper")
+    return f"{graphs.stream_name(s)} stream ({hex(s.cuda_stream)})"
 
 
 def record_passes(local_mapper) -> list:
@@ -2506,6 +2561,78 @@ def graphs_loop_pair(checks: dict):
         same_eg and same_closures and diff is None and len(eg[0]) >= 1 and len(closures[0]) >= 1)
 
 
+def graphs_streams(checks: dict):
+    """The two streams' rules on the card. A `CapturedFunction` called off
+    its owner's stream raises (the mapper's on the default stream, the
+    tracker's on the mapper stream) and on its own stream replays equal to
+    eager; `graphs.fetch` gives the bits of `.cpu().numpy()` for each dtype
+    the stages read back, as a dense tensor, a 0-d one, an empty one, a
+    transposed view and a strided slice; a tensor the default stream is
+    still writing, handed over with `share_with` and read on the mapper
+    stream behind `wait_for`, reads as written, and its memory, freed on
+    the default stream while the mapper stream still reads it, is not
+    handed out again before that read is done."""
+    from ceres_mono_orb_slam2_tpu_torch.utils import graphs
+
+    dev = torch.device("cuda")
+    mapper = graphs.owner_stream(dev, "mapper")
+    guard = {}
+    for owner, wrong in (("mapper", torch.cuda.default_stream(dev)), ("tracker", mapper)):
+        fn = graphs.CapturedFunction(lambda x: torch.tanh(x) * 3 + 1, dev, name=f"probe_{owner}", owner=owner)
+        x = torch.linspace(-2.0, 2.0, 4096, device=dev)
+        with torch.cuda.stream(wrong):
+            try:
+                fn(x)
+                raised = False
+            except RuntimeError:
+                raised = True
+        with graphs.on_owner_stream(dev, owner):
+            outs = [fn(x) for _ in range(3)]
+            want = torch.tanh(x) * 3 + 1
+            same = all(torch.equal(o, want) for o in outs)
+            torch.cuda.current_stream().synchronize()
+        guard[owner] = (raised, fn.n_captures, fn.n_replays, same)
+    checks["a call off its owner's stream raises; on it, replays equal to eager"] = all(
+        raised and cap == 1 and rep == 2 and same for raised, cap, rep, same in guard.values())
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    wrong_fetch = []
+    for dtype in (torch.float32, torch.int64, torch.int32, torch.uint8, torch.bool):
+        base = (torch.randn((257, 33), device=dev, generator=g) * 1e3).to(dtype)
+        cases = (base, base[7, 3], base[:0], base.t(), base[1::3, ::2])
+        for i, (a, t) in enumerate(zip(graphs.fetch(*cases), cases)):
+            want = t.cpu().numpy()
+            if a.dtype != want.dtype or a.shape != want.shape or not np.array_equal(a, want):
+                wrong_fetch.append((str(dtype), i))
+    checks["graphs.fetch gives the bits of .cpu().numpy()"] = not wrong_fetch
+
+    # the default stream busy for a while, then a tensor it writes last
+    # handed to the mapper stream, read there, and freed on the default
+    # stream while the mapper stream, busy too, has not read it yet
+    w = torch.randn((2048, 2048), device=dev, generator=g)
+    for _ in range(40):
+        w = torch.tanh(w @ w * 1e-3)
+    z = w[:, :64] * 2 - 1
+    want_z = z.clone()
+    ready = graphs.share_with("mapper", [z])
+    with graphs.on_owner_stream(dev, "mapper"):
+        graphs.wait_for(ready)
+        v = torch.randn((2048, 2048), device=dev, generator=g)
+        for _ in range(40):
+            v = torch.tanh(v @ v * 1e-3)
+        r = z * 3
+    del z
+    junk = torch.full((2048, 64), float("nan"), device=dev)  # may take z's block if it were free
+    with graphs.on_owner_stream(dev, "mapper"):
+        got_r, = graphs.fetch(r)
+    want_r = (want_z * 3).cpu().numpy()
+    checks["a tensor handed over reads as written, its memory kept while the mapper stream reads it"] = (
+        np.array_equal(got_r, want_r) and bool(torch.isnan(junk).all()))
+    log(f"[graphs] streams: the mapper stream {mapper_stream_name()}; (raised off its stream, captures, "
+        f"replays, equal to eager) by owner {guard}; fetch cases unlike .cpu().numpy(): {wrong_fetch}; a "
+        f"handed-over tensor read on the mapper stream as written: {np.array_equal(got_r, want_r)}")
+
+
 def graphs_held_start(seq, cfg, checks: dict) -> int:
     """The spiral's frame 0 shown HELD_FRAMES times, then its next frames
     until the map initialises and one frame more, through a MonoSLAM with
@@ -2625,6 +2752,7 @@ def phase_graphs(seq, cfg):
     images8 = torch.from_numpy(np.clip(images8 + 0.5, 0.0, 255.0).astype(np.uint8)).cuda()
     k.reset_launch_counts()
     n_extract, checks = 0, {}
+    graphs_streams(checks)
     mb = lambda progs: [(p["name"], max(p["shapes"], key=np.prod), round(p["pool_mb"], 1),  # noqa: E731
                          round(p["body_pool_mb"], 1), round(p["input_mb"], 2), p["captures"], p["replays"])
                         for p in progs]
@@ -2667,7 +2795,7 @@ def phase_graphs(seq, cfg):
     log(f"[graphs] spiral serial: {len(passes[0])} mapping passes, every keyframe pose and map point after "
         f"each pass equal to the bit: {map_diff is None}{'' if map_diff is None else ' (' + map_diff + ')'}; "
         f"mean stage ms graphs {stage_means[0]}, eager {stage_means[1]}; "
-        f"the mapper's programs (captures, replays, kept, dropped, shared pool MB) "
+        f"the mapper's programs (captures, replays on the mapper stream, kept, dropped, shared pool MB) "
         f"{program_summaries(pair[0][0])}; local mapping programs (name, largest input, pool MB, input MB, "
         f"captures, replays) {mb(pair[0][0].local_mapper.programs())}")
     log(f"[graphs] one fused frame under torch.profiler ({g_method} / {e_method}): host API launches graphs "

@@ -17,7 +17,9 @@ host copies of `Frame` / `KeyFrame` under two threads.
 - A frame that wanted a keyframe the busy mapper could not take makes the
   next frame wait for local mapping; the wait ends when local mapping is
   idle, while a loop closure on the mapper thread runs on, and a wait that
-  runs into its timeout raises."""
+  runs into its timeout raises.
+- `graphs.fetch`, the mapper's one read-back a stage, gives the bits of
+  `.cpu().numpy()`."""
 
 import sys
 import threading
@@ -36,6 +38,7 @@ from ceres_mono_orb_slam2_tpu_torch.ops import bow
 from ceres_mono_orb_slam2_tpu_torch.ops.orb.extractor import FrameFeatures
 from ceres_mono_orb_slam2_tpu_torch.utils.config import (
     CameraConfig, ORBConfig, SlamConfig, StaticShapes)
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs
 from ceres_mono_orb_slam2_tpu_torch.utils.geosim import (
     GeoExtractor, GeoWorld, frame_image, make_geo_trajectory)
 from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse
@@ -428,6 +431,33 @@ def test_keyframe_wait_past_its_timeout_raises(monkeypatch):
         release.set()
         monkeypatch.undo()  # shutdown joins the mapper within the real timeout
         slam.shutdown()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int64, torch.int32, torch.uint8, torch.bool])
+def test_fetch_gives_the_bits_of_cpu_numpy(dtype):
+    """`graphs.fetch`, a mapping stage's one read-back, gives per tensor
+    the arrays `.cpu().numpy()` gives (shape, dtype, bits): a 0-d tensor, an
+    empty one, a transposed view and a strided slice among them, each
+    copied into a dense host tensor of its own as on the card (there pinned,
+    without a synchronisation a tensor; `chip_smoke.py`'s `[graphs]` checks
+    that path), so that writing the source afterwards leaves the arrays as
+    they were; off CUDA the stream handover is a no-op."""
+    g = torch.Generator().manual_seed(3)
+    base = (torch.randn((6, 5), generator=g) * 1e3).to(dtype)
+    tensors = (base, base[2, 3], base[:0], base.t(), base[1::2, ::2])
+    wants = [t.cpu().numpy().copy() for t in tensors]
+    got = graphs.fetch(*tensors)
+    base.zero_()
+    assert len(got) == len(tensors)
+    for a, want in zip(got, wants):
+        assert isinstance(a, np.ndarray) and a.dtype == want.dtype and a.shape == want.shape
+        assert a.flags.c_contiguous
+        np.testing.assert_array_equal(a, want)
+    assert graphs.owner_stream("cpu", "mapper") is None
+    assert graphs.share_with("mapper", tensors) is None
+    graphs.wait_for(None)
+    with graphs.on_owner_stream("cpu", "mapper"):
+        assert graphs.fetch(base)[0].sum() == 0
 
 
 def _lazy_frame(seed: int, n: int = 256) -> Frame:

@@ -2,6 +2,7 @@
 
     python tools/diag_threaded_keyframes.py [--world spiral|geo-circle] [--frames 32]
                                             [--runs serial,threaded,eager,paced] [--no-wait] [--sample]
+                                            [--split]
 
 `--world spiral` (the default) renders the spiral ring world at 1241x376
 (chip_smoke.py's sequence, 2000 features); `--world geo-circle` runs
@@ -13,7 +14,9 @@ all 72 of the circle) go through the MonoSLAM of each run: `serial`,
 full rate) and `paced` (threaded, graphs, `wait_mapper_idle` after each
 frame). For each run it prints the ATE of the tracked centres, the
 keyframes, the loops closed, the mapper's passes and seconds, the median
-and p95 frame ms, the frames that waited for local mapping
+and p95 frame ms, the mean ms of each mapping stage over every pass and
+over the passes after the first (a threaded mapper's first pass waits for
+the tracker's first captures), the frames that waited for local mapping
 (`MonoSLAM.n_keyframe_waits`) and the longest wait, and per keyframe
 decision (frame, keyframes, inliers, the reference keyframe's tracked
 points, mapper idle, queued keyframes, new keyframe); then each frame's
@@ -21,7 +24,14 @@ method, inliers and ms, each mapping pass's stage ms and each closure's
 stage ms. `--no-wait` turns off the facade's wait after a wanted keyframe
 (the reference's behaviour: the keyframe is dropped); `--sample` prints
 per-thread stack samples of the threaded runs (tools/prof_torch_slam.py's
-ThreadSampler). Needs a CUDA device.
+ThreadSampler); `--split` prints, per mapping pass on average, where the
+mapping thread's wall time went: waiting for and holding `map.update_lock`,
+inside the device calls of the triangulation (and within it the wait for
+its queued work before the eigensolver, and the eigensolver with its host
+check), the fuse and the local BA (their enqueue and the host checks
+within), inside `graphs.fetch` (the stages' read-backs) and the rest (host
+Python), and how long the tracker's thread held the lock a frame. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -29,7 +39,9 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import threading
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -39,7 +51,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from ceres_mono_orb_slam2_tpu_torch.models import tracking  # noqa: E402
 from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM  # noqa: E402
-from ceres_mono_orb_slam2_tpu_torch.ops import bow  # noqa: E402
+from ceres_mono_orb_slam2_tpu_torch.ops import bow, mapping_batch, optim, twoview  # noqa: E402
+from ceres_mono_orb_slam2_tpu_torch.utils import graphs  # noqa: E402
 from ceres_mono_orb_slam2_tpu_torch.utils.config import (  # noqa: E402
     CameraConfig, ORBConfig, SlamConfig, StaticShapes)
 from ceres_mono_orb_slam2_tpu_torch.utils.geosim import (  # noqa: E402
@@ -93,22 +106,127 @@ def _logged_decision(need):
     return decide
 
 
-def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool):
+class _Split:
+    """Wall ms a mapping pass spends in each part (see `--split`), summed
+    over the passes, on whichever thread runs them; the lock's waits and
+    holds of the other threads (the tracker's) apart."""
+
+    def __init__(self, slam):
+        self.ms, self.per_pass, self.local = Counter(), [], threading.local()
+        self.lock, lm = slam.map.update_lock, slam.local_mapper
+        slam.map.update_lock = self
+        process = lm._process
+
+        def timed_pass(kf):
+            before = Counter({k: v for k, v in self.ms.items() if not k.startswith("other")})
+            self.local.in_pass, t = True, time.perf_counter()
+            try:
+                return process(kf)
+            finally:
+                self.local.in_pass = False
+                self.ms["pass"] += (time.perf_counter() - t) * 1e3
+                self.per_pass.append(Counter({k: v for k, v in self.ms.items()
+                                              if not k.startswith("other")}) - before)
+
+        lm._process = timed_pass
+
+    def key(self, name: str) -> str:
+        return name if getattr(self.local, "in_pass", False) else "other thread " + name
+
+    def timed(self, name: str, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.ms[self.key(name)] += (time.perf_counter() - t) * 1e3
+        return call
+
+    def eigensolver(self, fn):
+        """The triangulation's eigensolver, after a synchronisation of the
+        current stream: the wait for the work queued before it apart from
+        the solver's own time (its host check included)."""
+        def call(*a, **kw):
+            t = time.perf_counter()
+            torch.cuda.current_stream().synchronize()
+            t1 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.ms[self.key("of which the wait before the eigensolver")] += (t1 - t) * 1e3
+                self.ms[self.key("of which the eigensolver")] += (time.perf_counter() - t1) * 1e3
+        return call
+
+    def __enter__(self):
+        t = time.perf_counter()
+        self.lock.acquire()
+        now = time.perf_counter()
+        self.ms[self.key("lock wait")] += (now - t) * 1e3
+        self.ms[self.key("lock takes")] += 1
+        depth = getattr(self.local, "depth", 0)
+        if depth == 0:
+            self.local.held_at = now
+        self.local.depth = depth + 1
+        return self
+
+    def __exit__(self, *exc):
+        self.local.depth -= 1
+        if self.local.depth == 0:
+            self.ms[self.key("lock held")] += (time.perf_counter() - self.local.held_at) * 1e3
+        self.lock.release()
+
+    @staticmethod
+    def _parts(passes) -> dict:
+        n = max(len(passes), 1)
+        parts = {k: round(sum(p[k] for p in passes) / n, 2)
+                 for k in sorted({k for p in passes for k in p})}
+        inner = sum(v for k, v in parts.items()
+                    if k not in ("pass", "lock held", "lock takes") and not k.startswith("of which"))
+        parts["rest (host Python)"] = round(parts.get("pass", 0.0) - inner, 2)
+        return parts
+
+    def report(self, frame_holds: list) -> str:
+        """The first pass's split, the mean split of the later ones, and the
+        ms the tracker's thread held the lock a frame (median and p95 over
+        frames 10+)."""
+        steady = np.asarray(frame_holds[10:] or [0.0])
+        return (f"first pass {self._parts(self.per_pass[:1])}; ms a pass over the {len(self.per_pass) - 1} "
+                f"later passes {self._parts(self.per_pass[1:])}; the tracker's thread held the lock "
+                f"median {np.median(steady):.2f} ms, p95 {np.percentile(steady, 95):.2f} ms a frame (frames "
+                f"10+), waited for it {self.ms['other thread lock wait'] / max(len(frame_holds), 1):.2f} ms "
+                f"a frame on average")
+
+
+_SPLIT_CALLS = ((mapping_batch, "triangulate_with_neighbors", "triangulation call"),
+                (mapping_batch, "fuse_into_targets", "fuse call"),
+                (optim, "bundle_adjustment", "local BA call"),
+                (graphs, "fetch", "fetch"),
+                (twoview, "smallest_eigvecs", None))
+
+
+def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool, split: bool):
     threaded = name != "serial"
     kw = dict(threaded=threaded, graphs=name != "eager")
     slam = seq.system(**kw) if isinstance(seq, GeoCircle) else MonoSLAM(cfg, device="cuda", **kw)
     slam.tracker.decisions = []
     if no_wait:
         slam._wait_for_wanted_keyframe = lambda: None
+    splitter, plain = (_Split(slam), [getattr(mod, fn) for mod, fn, _ in _SPLIT_CALLS]) if split else (None, [])
+    for (mod, fn, key), f in zip(_SPLIT_CALLS, plain):
+        setattr(mod, fn, splitter.eigensolver(f) if key is None else splitter.timed(key, f))
     sampler = ThreadSampler(0.002) if sample and threaded else None
     poses, frame_ms = [], []
     t0 = time.perf_counter()
     if sampler:
         sampler.__enter__()
+    frame_holds = []  # ms the tracker's thread held map.update_lock a frame (`--split`)
     for i in range(n):
+        held = splitter.ms["other thread lock held"] if splitter else 0.0
         t = time.perf_counter()
         poses.append(slam.track_monocular(seq.images[i], float(seq.timestamps[i])))
         frame_ms.append((time.perf_counter() - t) * 1e3)
+        if splitter:
+            frame_holds.append(splitter.ms["other thread lock held"] - held)
         if name == "paced":
             slam.wait_mapper_idle(timeout=600.0)
     if sampler:
@@ -116,18 +234,29 @@ def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool):
     slam.shutdown()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    for (mod, fn, _), f in zip(_SPLIT_CALLS, plain):
+        setattr(mod, fn, f)
     idx = [i for i, T in enumerate(poses) if T is not None]
+    first = min(idx) if idx else n
+    tracked_pct = 100.0 * len(idx) / max(n - first, 1)
     est = np.asarray([-T[:3, :3].T @ T[:3, 3] for T in poses if T is not None])
     gt = seq.gt_centers()[idx]
     ate = 100.0 * ate_rmse(est, gt) / float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
     lm, lc = slam.local_mapper, slam.loop_closer
     mapper_s = sum(sum(v for k, v in p.items() if k != "kf") for p in lm.pass_ms) / 1e3
+    stages = ("process_new", "cull_mp", "triangulate", "fuse", "lba", "cull_kf")
+    stage_ms = [{st: round(float(np.mean([p[st] for p in passes if st in p] or [0.0])), 2) for st in stages}
+                for passes in (lm.pass_ms, lm.pass_ms[1:])]
+    print(f"{name}: init frame {first}, tracked {tracked_pct:.1f}% after init, mean stage ms {stage_ms[0]}, "
+          f"after the first pass {stage_ms[1]}, local BAs {lm.n_local_ba} ({lm.n_ba_aborted} cut short)")
     print(f"{name}: ATE {ate!r} %, sum of centres {float(est.sum())!r}, keyframes {slam.map.n_keyframes()}, "
           f"loops closed {lc.n_loops_closed if lc else 0}, passes {len(lm.pass_ms)}, mapper {mapper_s:.2f} s, "
           f"wall {wall:.2f} s, frame ms (10+) median {np.median(frame_ms[10:]):.1f}, p95 "
           f"{np.percentile(frame_ms[10:], 95):.1f}, max {max(frame_ms):.1f}, keyframe waits "
           f"{slam.n_keyframe_waits}, longest {slam.max_keyframe_wait_ms:.1f} ms, waits ms "
           f"{[round(w, 1) for w in slam.keyframe_wait_ms]}", flush=True)
+    if splitter:
+        print(f"{name}: split: {splitter.report(frame_holds)}", flush=True)
     print("  decisions (frame, keyframes, inliers, reference tracked points, mapper idle, queued, new):",
           slam.tracker.decisions)
     print("  frames (id, method, inliers, ms):", [(st["frame_id"], st["method"], st.get("inliers_local"),
@@ -149,6 +278,7 @@ def main() -> int:
     ap.add_argument("--no-wait", action="store_true",
                     help="drop a keyframe the busy mapper cannot take, as the reference does")
     ap.add_argument("--sample", action="store_true", help="per-thread stack samples of threaded runs")
+    ap.add_argument("--split", action="store_true", help="where a mapping pass's wall time goes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("diag_threaded_keyframes: no CUDA device", file=sys.stderr)
@@ -165,7 +295,7 @@ def main() -> int:
     tracking.Tracking._need_new_keyframe = _logged_decision(tracking.Tracking._need_new_keyframe)
     print(torch.cuda.get_device_name(0), flush=True)
     for name in args.runs.split(","):
-        run(name, seq, cfg, n, args.no_wait, args.sample)
+        run(name, seq, cfg, n, args.no_wait, args.sample, args.split)
     return 0
 
 
