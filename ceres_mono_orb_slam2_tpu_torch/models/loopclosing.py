@@ -20,12 +20,13 @@ the actual problem sizes, on the mapper stream (`utils/graphs.py`) on every
 thread, each stage's results read back with one `graphs.fetch`; the Sim(3)
 RANSAC draws come from `uniform_noise`, which tests replace to inject
 draws. With `graphs=True` (the default) each
-GN iteration of the essential graph and each LM iteration of the global BA
-(dense or CG) replay a captured program (`utils/graphs.py`), the JAX
-package's jitted solves; `graphs=False` runs them op by op. The Sim(3)
-refinement of a candidate runs op by op at its actual match count either
-way: a run makes few refinements, each at its own count, so a program a
-count would be captured and seldom replayed.
+LM iteration of the Sim(3) refinement, each GN iteration of the essential
+graph and each LM iteration of the global BA (dense or CG) replay a captured
+program (`utils/graphs.py`), the JAX package's jitted solves; `graphs=False`
+runs them op by op. Every refinement of a process pads its matches to one
+row count, the current keyframe's keypoint capacity, so all of them share
+one program. The Sim(3) RANSAC runs op by op at the live match count (the
+JAX package does not jit it either).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from ceres_mono_orb_slam2_tpu_torch.models.optimization import run_global_ba
 from ceres_mono_orb_slam2_tpu_torch.ops import bow, matcher, optim, sim3opt, sim3solver
 from ceres_mono_orb_slam2_tpu_torch.utils import graphs as graphs_mod
 from ceres_mono_orb_slam2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from ceres_mono_orb_slam2_tpu_torch.utils.padding import pad_rows
 
 log = logging.getLogger(__name__)
 
@@ -96,13 +98,16 @@ class LoopClosing:
         self.loop_stats: List[dict] = []
         self._sim3_ms = self._eg_solve_ms = 0.0
         # captured programs (utils/graphs.py, owner "mapper"), or the same
-        # functions eagerly: the essential graph's GN iteration (its PCG
+        # functions eagerly: the Sim(3) refinement's LM iteration at its one
+        # padded row count; the essential graph's GN iteration (its PCG
         # included) per (P, E), replayed for every iteration of the solve;
         # the global BA's LM iterations (dense or CG) per map shape, replayed
         # by every chunk
-        self._eg_step = None
+        self._sim3_step = self._eg_step = None
         self._gba_steps = {}
         if graphs:
+            self._sim3_step = graphs_mod.CapturedFunction(
+                sim3opt.sim3_lm_iteration, self.device, name="sim3_lm", owner="mapper", max_programs=1)
             self._eg_step = graphs_mod.CapturedFunction(
                 partial(sim3opt.gn_iteration, cg_iters=EG_CG_ITERS), self.device,
                 name="essential_graph_gn", owner="mapper", max_programs=2)
@@ -115,7 +120,7 @@ class LoopClosing:
 
     def captured(self) -> list:
         """The `CapturedFunction`s of loop closing (none without graphs)."""
-        return ([self._eg_step] if self._eg_step is not None else []) + list(
+        return [f for f in (self._sim3_step, self._eg_step) if f is not None] + list(
             self._gba_steps.values())
 
     def programs(self) -> list:
@@ -385,23 +390,21 @@ class LoopClosing:
                 continue
 
             def build_arrays(prs):
-                """(X1, X2, uv1, uv2, w1, w2, valid) of the matched pairs, on
-                the device at their actual count."""
+                """(X1, X2, uv1, uv2, w1, w2) of the matched pairs, numpy at
+                their actual count."""
                 i1 = [p[0] for p in prs]
                 i2 = [p[1] for p in prs]
                 X1 = np.stack([kf.Rcw @ p[2].pos + kf.tcw for p in prs]).astype(np.float32)
                 X2 = np.stack([ckf.Rcw @ p[3].pos + ckf.tcw for p in prs]).astype(np.float32)
-                arrays = (X1, X2, kf.kp_und[i1].astype(np.float32),
-                          ckf.kp_und[i2].astype(np.float32),
-                          self.inv_sigma2[kf.kp_octave[i1]].astype(np.float32),
-                          self.inv_sigma2[ckf.kp_octave[i2]].astype(np.float32),
-                          np.ones(len(prs), bool))
-                return tuple(self._dev(a) for a in arrays)
+                return (X1, X2, kf.kp_und[i1].astype(np.float32), ckf.kp_und[i2].astype(np.float32),
+                        self.inv_sigma2[kf.kp_octave[i1]].astype(np.float32),
+                        self.inv_sigma2[ckf.kp_octave[i2]].astype(np.float32))
 
             arrays = build_arrays(pairs)
             noise = torch.as_tensor(self.uniform_noise((SIM3_HYPOTHESES, len(pairs))),
                                     device=self.device)
-            res = sim3solver.ransac_sim3(noise, self.jK, self.jK, *arrays,
+            res = sim3solver.ransac_sim3(noise, self.jK, self.jK,
+                                         *(self._dev(a) for a in arrays + (np.ones(len(pairs), bool),)),
                                          fix_scale=self.fix_scale)
             success, R12_0, t12_0, s12_0 = graphs_mod.fetch(res.success, res.R, res.t, res.s)
             if not bool(success):
@@ -413,7 +416,10 @@ class LoopClosing:
             if extra:
                 pairs = pairs + extra
                 arrays = build_arrays(pairs)
-            opt = sim3opt.optimize_sim3(self.jK, self.jK, *arrays, res.R, res.t, res.s)
+            # each pair holds a keypoint of kf of its own (the descriptor
+            # search gives a keypoint one match, the sim3-directed search
+            # skips matched keypoints), so kf's keypoint capacity bounds the rows
+            opt = self.refine_sim3(arrays, res.R, res.t, res.s, rows=len(kf.kp_und))
             n_inl, R12, t12, s12, inl = graphs_mod.fetch(opt.n_inliers, opt.R, opt.t, opt.s, opt.inliers)
             if int(n_inl) < 20:
                 continue
@@ -454,6 +460,20 @@ class LoopClosing:
                     (total, loop_mp_ids)
         release()
         return False, -1, None, None
+
+    def refine_sim3(self, arrays, R0, t0, s0, rows: int) -> sim3opt.Sim3Result:
+        """`optimize_sim3` of the matches `arrays` (numpy X1, X2, uv1, uv2,
+        w1, w2 at the live count) padded to `rows` rows as the JAX loop
+        closer pads them (valid False, z = 1, weight 1), through the captured
+        LM iteration with graphs. Raises past `rows`; never truncates."""
+        n = len(arrays[0])
+        if n > rows:
+            raise ValueError(f"{n} Sim(3) matches past the row capacity {rows}")
+        X1, X2, uv1, uv2, w1, w2 = (pad_rows(a, rows, fill) for a, fill in zip(arrays, (0, 0, 0, 0, 1, 1)))
+        X1[n:, 2] = X2[n:, 2] = 1.0  # padded rows in front of both cameras
+        return sim3opt.optimize_sim3(
+            self.jK, self.jK, *(self._dev(a) for a in (X1, X2, uv1, uv2, w1, w2, np.arange(rows) < n)),
+            R0, t0, s0, step=self._sim3_step)
 
     # ----------------------------------------------------------- correct loop
 

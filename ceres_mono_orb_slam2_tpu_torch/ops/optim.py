@@ -454,118 +454,200 @@ def bundle_adjustment(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigm
     return BAResult(R=R2, t=t2, points=pts2, inlier_obs=inlier_obs, cost=cost)
 
 
+class BAStreamsProblem(BAProblem):
+    """A `BAProblem` of S windows of one shape (P poses, M points, O
+    observations each) solved as one: pose and point indices offset per
+    stream (s * P + p, s * M + m), so that one set of segment sums assembles
+    all S normal equations, and the observations flattened to (S * O, ...).
+    `free6` is (S, 6P). Each index block's width is padded to a power of two
+    (`pow2_width`), so that windows of one shape share a program key as
+    their jitted JAX solve shares one compilation."""
+    __slots__ = ()
+
+
+def pow2_width(index: torch.Tensor, n_obs: int) -> torch.Tensor:
+    """A `SegmentSum.index` block widened to the next power of two with
+    entries that point at the zero row."""
+    n, width = index.shape
+    return torch.cat([index, index.new_full((n, (1 << (width - 1).bit_length()) - width), n_obs)], 1)
+
+
+def ba_streams_problem(K, obs_pose, obs_point, obs_uv, obs_inv_sigma2, fixed_pose,
+                       point_valid) -> BAStreamsProblem:
+    """The `BAStreamsProblem` of fixed_pose (S, P), point_valid (S, M) and
+    observations (S, O, ...) (three host reads: the segment widths)."""
+    S, P = fixed_pose.shape
+    M, O = point_valid.shape[1], obs_pose.shape[1]
+    stream = torch.arange(S, device=obs_pose.device)[:, None]
+    op = (obs_pose.long() + stream * P).reshape(-1)
+    oj = (obs_point.long() + stream * M).reshape(-1)
+    pair = oj * P + obs_pose.long().reshape(-1)
+    return BAStreamsProblem(
+        K, op, oj, obs_uv.reshape(S * O, 2), obs_inv_sigma2.reshape(S * O), point_valid.reshape(S * M),
+        (~fixed_pose).repeat_interleave(6, dim=1), pow2_width(SegmentSum(op, S * P).index, S * O),
+        pow2_width(SegmentSum(oj, S * M).index, S * O), pow2_width(SegmentSum(pair, S * M * P).index, S * O))
+
+
+def _ba_streams_cost(prob: BAStreamsProblem, Rp, tp, pts, mask, robust: bool, delta: float):
+    """(S,) costs."""
+    s, _, _ = _ba_chi2(prob, Rp, tp, pts)
+    c = huber_cost(s, delta) if robust else s
+    return torch.where(mask, c, torch.zeros_like(c)).reshape(prob.free6.shape[0], -1).sum(-1)
+
+
+def _lm_iteration_streams(state: LMState, mask, prob: BAStreamsProblem, robust: bool,
+                          delta: float) -> LMState:
+    """`_lm_iteration` of S windows at once: R (S * P, 3, 3), t (S * P, 3),
+    points (S * M, 3), mask (S * O,); lam, cost and done (S,), so a stream
+    that is done stays as it is while the others iterate.
+
+    The iteration runs under `graphs.run_if((~done).any())`, writing a copy
+    of the state in place: in a captured program it is skipped on the device
+    once every stream is done (the JAX scan's later iterations, which leave
+    a done state as it is); eagerly it always runs, with the same bits."""
+    out = LMState(*(x.clone() for x in state))
+    with graphs.run_if((~state.done).any()):
+        for dst, src in zip(out, _lm_streams_update(state, mask, prob, robust, delta)):
+            dst.copy_(src)
+    return out
+
+
+def _lm_streams_update(state: LMState, mask, prob: BAStreamsProblem, robust: bool,
+                       delta: float) -> LMState:
+    """The state after one LM iteration of `_lm_iteration_streams`."""
+    Rp, tp, pts, lam, cost, done = state
+    free6 = prob.free6
+    S, P = free6.shape[0], free6.shape[1] // 6
+    M = pts.shape[0] // S
+    dev, dt = Rp.device, Rp.dtype
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    pose_ar = torch.arange(P, device=dev)
+
+    def per_pose(x):  # (S,) -> (S * P, 1, 1)
+        return x[:, None].expand(S, P).reshape(S * P, 1, 1)
+
+    def per_point(x):  # (S,) -> (S * M, 1, 1)
+        return x[:, None].expand(S, M).reshape(S * M, 1, 1)
+
+    s, r, Xc = _ba_chi2(prob, Rp, tp, pts)
+    w = prob.obs_inv_sigma2 * (huber_weight(s, delta) if robust else 1.0)
+    w = torch.where(mask & (Xc[..., 2] > 1e-6), w, torch.zeros_like(w))
+    Jp = _proj_jacobian(prob.K, Xc)
+    A = _pose_jacobian(Jp, Xc)
+    B = -(Jp @ Rp[prob.obs_pose])
+    Hpp, bp, Hll, bl, U = assemble_normal_equations(
+        partial(segment_sum, prob.by_pose), partial(segment_sum, prob.by_point),
+        partial(segment_sum, prob.by_pair), A, B, r, w, P, S * M)
+    U3 = U.reshape(S, M, P * 6, 3)
+    Hll_d = Hll + per_point(lam) * (Hll * eye3) + 1e-6 * eye3
+    Hpp_d = Hpp + per_pose(lam) * (Hpp * eye6) + 1e-6 * eye6
+    Hll_inv = torch.where(prob.point_valid[:, None, None], _inv3x3(Hll_d),
+                          torch.zeros_like(Hll_d)).reshape(S, M, 3, 3)
+    bl = bl.reshape(S, M, 3)
+    T3 = torch.einsum("smak,smkl->smal", U3, Hll_inv)
+    # per stream: S = blockdiag(Hpp_d) - sum_m U_m Hll_m^-1 U_m^T
+    Sm = -torch.einsum("smak,smbk->sab", T3, U3).reshape(S, P, 6, P, 6)
+    Sm[:, pose_ar, :, pose_ar, :] += Hpp_d.reshape(S, P, 6, 6).transpose(0, 1)
+    Sm = Sm.reshape(S, P * 6, P * 6)
+    rhs = bp.reshape(S, P * 6) - torch.einsum("smak,smk->sa", T3, bl)
+    # gauge: zero rows/cols of fixed poses, identity diagonal
+    Sm = torch.where(free6[:, :, None] & free6[:, None, :], Sm, torch.zeros_like(Sm))
+    Sm = Sm + torch.diag_embed(torch.where(free6, 0.0, 1.0).to(dt))
+    rhs = torch.where(free6, rhs, torch.zeros_like(rhs))
+    L, info = torch.linalg.cholesky_ex(Sm)
+    # the factor's two triangular solves (cuBLAS), not cholesky_solve, whose
+    # batched CUDA form goes through MAGMA
+    y = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+    dp = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0]
+    # a failed factorisation rejects that stream's step (NaN cost)
+    dp = torch.where((info == 0)[:, None], dp, torch.full_like(dp, float("nan")))
+    dl = torch.einsum("smkl,sml->smk", Hll_inv, bl - torch.einsum("smak,sa->smk", U3, dp))
+    dl = torch.where(prob.point_valid[:, None], dl.reshape(S * M, 3), torch.zeros_like(pts))
+    dRp, dtp = lie.se3_exp(dp.reshape(S * P, 6))
+    R_new = dRp @ Rp
+    t_new = (dRp @ tp[..., None])[..., 0] + dtp
+    pts_new = pts + dl
+    new_cost = _ba_streams_cost(prob, R_new, t_new, pts_new, mask, robust, delta)
+    accept = new_cost < cost
+    converged = accept & (cost - new_cost <= 1e-6 * cost)
+    take = accept & ~done
+    return LMState(R=torch.where(per_pose(take), R_new, Rp), t=torch.where(per_pose(take)[:, 0], t_new, tp),
+                   points=torch.where(per_point(take)[:, 0], pts_new, pts),
+                   lam=torch.where(done, lam, torch.where(accept, (lam * 0.33).clamp_min(1e-7),
+                                                          (lam * 5.0).clamp_max(1e6))),
+                   cost=torch.where(take, new_cost, cost), done=done | converged)
+
+
+def lm_iteration_streams_robust(state: LMState, mask, prob: BAStreamsProblem,
+                                delta: float = math.sqrt(CHI2_MONO)) -> LMState:
+    """`bundle_adjustment_streams`' LM iteration of its Huber pass (tensors
+    in and out: the function `make_multistream_local_ba` captures)."""
+    return _lm_iteration_streams(state, mask, prob, True, delta)
+
+
+def lm_iteration_streams_trimmed(state: LMState, mask, prob: BAStreamsProblem,
+                                 delta: float = math.sqrt(CHI2_MONO)) -> LMState:
+    """`bundle_adjustment_streams`' LM iteration of its trimmed quadratic pass."""
+    return _lm_iteration_streams(state, mask, prob, False, delta)
+
+
 def bundle_adjustment_streams(K, R, t, points, obs_pose, obs_point, obs_uv, obs_inv_sigma2,
                               obs_valid, fixed_pose, point_valid, iters_huber: int = 5,
-                              iters_trimmed: int = 10, chi2_th: float = CHI2_MONO) -> BAResult:
+                              iters_trimmed: int = 10, chi2_th: float = CHI2_MONO,
+                              robust_step=None, trimmed_step=None) -> BAResult:
     """`bundle_adjustment` of S independent problems of one shape in one set
     of launches: R (S, P, 3, 3), t (S, P, 3), points (S, M, 3), observations
     (S, O, ...), fixed_pose (S, P), point_valid (S, M); every field of the
     result carries the stream axis, `cost` is (S,).
 
-    Pose and point indices are offset per stream (s * P + p, s * M + m), so
-    one set of segment sums assembles all S normal equations; the S reduced
-    6P x 6P systems go through one batched Cholesky. Damping, cost, accept
-    or reject and convergence are (S,) vectors: a stream that has converged
-    keeps its state while the others iterate, so each stream takes the steps
-    its own solve would take. Each pass runs its fixed count of iterations,
-    with no host read inside the solve."""
+    One `BAStreamsProblem` holds all S windows, so one set of segment sums
+    assembles all S normal equations; the S reduced 6P x 6P systems go
+    through one batched Cholesky. Damping, cost, accept or reject and
+    convergence are (S,) vectors: a stream that has converged keeps its
+    state while the others iterate, so each stream takes the steps its own
+    solve would take. Each pass runs its fixed count of iterations, with no
+    host read inside the solve (`solve_ba_streams`)."""
+    prob = ba_streams_problem(K, obs_pose, obs_point, obs_uv, obs_inv_sigma2, fixed_pose, point_valid)
+    return solve_ba_streams(prob, R, t, points, obs_valid, iters_huber, iters_trimmed, chi2_th,
+                            robust_step, trimmed_step)
+
+
+def solve_ba_streams(prob: BAStreamsProblem, R, t, points, obs_valid, iters_huber: int = 5,
+                     iters_trimmed: int = 10, chi2_th: float = CHI2_MONO, robust_step=None,
+                     trimmed_step=None) -> BAResult:
+    """The two passes of `bundle_adjustment_streams` over a built problem.
+    `robust_step` / `trimmed_step` run one iteration of each pass
+    (`lm_iteration_streams_robust` / `_trimmed` at `chi2_th`'s Huber width
+    by default; `make_multistream_local_ba` passes their captured programs,
+    whose width is the default's, so a step passed with another `chi2_th`
+    raises)."""
+    if chi2_th != CHI2_MONO and (robust_step or trimmed_step):
+        raise ValueError(f"solve_ba_streams: steps passed with chi2_th {chi2_th}; their Huber width is "
+                         f"sqrt({CHI2_MONO})")
     S, P = R.shape[:2]
-    M, O = points.shape[1], obs_pose.shape[1]
-    dev, dt = R.device, R.dtype
+    M, O = points.shape[1], obs_valid.shape[1]
     delta = math.sqrt(chi2_th)
-    free6 = (~fixed_pose).repeat_interleave(6, dim=1)  # (S, 6P)
-    eye3 = torch.eye(3, dtype=dt, device=dev)
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    stream = torch.arange(S, device=dev)[:, None]
-    op = (obs_pose.long() + stream * P).reshape(-1)
-    oj = (obs_point.long() + stream * M).reshape(-1)
-    by_pose, by_point = SegmentSum(op, S * P), SegmentSum(oj, S * M)
-    by_pair = SegmentSum(oj * P + obs_pose.long().reshape(-1), S * M * P)
-    uv, w_obs = obs_uv.reshape(S * O, 2), obs_inv_sigma2.reshape(S * O)
-    pt_ok = point_valid.reshape(S * M)
-    pose_ar = torch.arange(P, device=dev)
+    robust_step = robust_step or partial(lm_iteration_streams_robust, delta=delta)
+    trimmed_step = trimmed_step or partial(lm_iteration_streams_trimmed, delta=delta)
 
-    def per_pose(x):  # (S,) -> (S * P, 1, 1)
-        return x.repeat_interleave(P)[:, None, None]
-
-    def per_point(x):  # (S,) -> (S * M, 1, 1)
-        return x.repeat_interleave(M)[:, None, None]
-
-    def chi2_of(Rp, tp, pts):
-        Xc = (Rp[op] @ pts[oj][..., None])[..., 0] + tp[op]
-        r = uv - _project(K, Xc)
-        s = w_obs * (r * r).sum(-1)
-        return torch.where(Xc[..., 2] <= 1e-6, torch.full_like(s, 1e6), s), r, Xc
-
-    def total_cost(Rp, tp, pts, mask, robust):
-        s, _, _ = chi2_of(Rp, tp, pts)
-        c = huber_cost(s, delta) if robust else s
-        return torch.where(mask, c, torch.zeros_like(c)).reshape(S, O).sum(-1)
-
-    def lm_iteration(Rp, tp, pts, lam, cost, done, mask, robust):
-        s, r, Xc = chi2_of(Rp, tp, pts)
-        w = w_obs * (huber_weight(s, delta) if robust else 1.0)
-        w = torch.where(mask & (Xc[..., 2] > 1e-6), w, torch.zeros_like(w))
-        Jp = _proj_jacobian(K, Xc)
-        A = _pose_jacobian(Jp, Xc)
-        B = -(Jp @ Rp[op])
-        Hpp, bp, Hll, bl, U = assemble_normal_equations(by_pose, by_point, by_pair, A, B, r, w,
-                                                        P, S * M)
-        U3 = U.reshape(S, M, P * 6, 3)
-        Hll_d = Hll + per_point(lam) * (Hll * eye3) + 1e-6 * eye3
-        Hpp_d = Hpp + per_pose(lam) * (Hpp * eye6) + 1e-6 * eye6
-        Hll_inv = torch.where(pt_ok[:, None, None], _inv3x3(Hll_d),
-                              torch.zeros_like(Hll_d)).reshape(S, M, 3, 3)
-        bl = bl.reshape(S, M, 3)
-        T3 = torch.einsum("smak,smkl->smal", U3, Hll_inv)
-        # per stream: S = blockdiag(Hpp_d) - sum_m U_m Hll_m^-1 U_m^T
-        Sm = -torch.einsum("smak,smbk->sab", T3, U3).reshape(S, P, 6, P, 6)
-        Sm[:, pose_ar, :, pose_ar, :] += Hpp_d.reshape(S, P, 6, 6).transpose(0, 1)
-        Sm = Sm.reshape(S, P * 6, P * 6)
-        rhs = bp.reshape(S, P * 6) - torch.einsum("smak,smk->sa", T3, bl)
-        # gauge: zero rows/cols of fixed poses, identity diagonal
-        Sm = torch.where(free6[:, :, None] & free6[:, None, :], Sm, torch.zeros_like(Sm))
-        Sm = Sm + torch.diag_embed(torch.where(free6, 0.0, 1.0).to(dt))
-        rhs = torch.where(free6, rhs, torch.zeros_like(rhs))
-        L, info = torch.linalg.cholesky_ex(Sm)
-        dp = torch.cholesky_solve(rhs[..., None], L)[..., 0]
-        # a failed factorisation rejects that stream's step (NaN cost)
-        dp = torch.where((info == 0)[:, None], dp, torch.full_like(dp, float("nan")))
-        dl = torch.einsum("smkl,sml->smk", Hll_inv, bl - torch.einsum("smak,sa->smk", U3, dp))
-        dl = torch.where(pt_ok[:, None], dl.reshape(S * M, 3), torch.zeros_like(pts))
-        dRp, dtp = lie.se3_exp(dp.reshape(S * P, 6))
-        R_new = dRp @ Rp
-        t_new = (dRp @ tp[..., None])[..., 0] + dtp
-        pts_new = pts + dl
-        new_cost = total_cost(R_new, t_new, pts_new, mask, robust)
-        accept = new_cost < cost
-        converged = accept & (cost - new_cost <= 1e-6 * cost)
-        take = accept & ~done
-        Rp = torch.where(per_pose(take), R_new, Rp)
-        tp = torch.where(per_pose(take)[:, 0], t_new, tp)
-        pts = torch.where(per_point(take)[:, 0], pts_new, pts)
-        lam = torch.where(done, lam, torch.where(accept, (lam * 0.33).clamp_min(1e-7),
-                                                 (lam * 5.0).clamp_max(1e6)))
-        cost = torch.where(take, new_cost, cost)
-        return Rp, tp, pts, lam, cost, done | converged
-
-    def run_pass(Rp, tp, pts, mask, robust, n_iters):
-        cost = total_cost(Rp, tp, pts, mask, robust)
-        lam = torch.full((S,), 1e-4, dtype=dt, device=dev)
-        done = torch.zeros((S,), dtype=torch.bool, device=dev)
+    def run_pass(Rp, tp, pts, mask, robust, step, n_iters):
+        cost = _ba_streams_cost(prob, Rp, tp, pts, mask, robust, delta)
+        state = LMState(Rp, tp, pts, torch.full((S,), 1e-4, dtype=R.dtype, device=R.device), cost,
+                        torch.zeros((S,), dtype=torch.bool, device=R.device))
         for _ in range(n_iters):
-            Rp, tp, pts, lam, cost, done = lm_iteration(Rp, tp, pts, lam, cost, done, mask, robust)
-        return Rp, tp, pts, cost
+            state = step(state, mask, prob)
+        return state.R, state.t, state.points, state.cost
 
     valid = obs_valid.reshape(S * O)
     R1, t1, pts1, _ = run_pass(lie.so3_project(R.reshape(S * P, 3, 3)), t.reshape(S * P, 3),
-                               points.reshape(S * M, 3), valid, True, iters_huber)
+                               points.reshape(S * M, 3), valid, True, robust_step, iters_huber)
     R1 = lie.so3_project(R1)
-    s, _, Xc = chi2_of(R1, t1, pts1)
+    s, _, Xc = _ba_chi2(prob, R1, t1, pts1)
     keep = valid & (s <= chi2_th) & (Xc[..., 2] > 1e-6)
-    R2, t2, pts2, cost = run_pass(R1, t1, pts1, keep, False, iters_trimmed)
+    R2, t2, pts2, cost = run_pass(R1, t1, pts1, keep, False, trimmed_step, iters_trimmed)
     R2 = lie.so3_project(R2)
-    s_final, _, Xc2 = chi2_of(R2, t2, pts2)
+    s_final, _, Xc2 = _ba_chi2(prob, R2, t2, pts2)
     inlier_obs = valid & (s_final <= chi2_th) & (Xc2[..., 2] > 1e-6)
     return BAResult(R=R2.reshape(S, P, 3, 3), t=t2.reshape(S, P, 3), points=pts2.reshape(S, M, 3),
                     inlier_obs=inlier_obs.reshape(S, O), cost=cost)

@@ -40,6 +40,84 @@ class Sim3Result(NamedTuple):
     n_inliers: torch.Tensor
 
 
+class Sim3Problem(NamedTuple):
+    """What stays fixed through a Sim(3) refinement: the matches. Tensors
+    only, so that one LM iteration is a function of tensors
+    (`sim3_lm_iteration`, captured by `LoopClosing` at one row count)."""
+    K1: torch.Tensor
+    K2: torch.Tensor
+    X1: torch.Tensor  # (N, 3)
+    X2: torch.Tensor  # (N, 3)
+    uv1: torch.Tensor  # (N, 2)
+    uv2: torch.Tensor  # (N, 2)
+    inv_sigma1: torch.Tensor  # (N,)
+    inv_sigma2: torch.Tensor  # (N,)
+    valid: torch.Tensor  # (N,) bool
+
+
+class Sim3State(NamedTuple):
+    """The carry of the refinement's LM loop."""
+    R: torch.Tensor
+    t: torch.Tensor
+    s: torch.Tensor
+    lam: torch.Tensor
+    cost: torch.Tensor
+
+
+def _sim3_residuals(prob: Sim3Problem, R, t, s):
+    q1 = s * (prob.X2 @ R.T) + t  # S12 X2 in camera 1
+    Ri, ti, si = lie.sim3_inverse(R, t, s)
+    q2 = si * (prob.X1 @ Ri.T) + ti  # S12^-1 X1 in camera 2
+    return prob.uv1 - _project(prob.K1, q1), prob.uv2 - _project(prob.K2, q2), q1, q2
+
+
+def _sim3_cost(prob: Sim3Problem, R, t, s, delta: float):
+    r1, r2, _, _ = _sim3_residuals(prob, R, t, s)
+    c = (huber_cost(prob.inv_sigma1 * (r1 * r1).sum(-1), delta)
+         + huber_cost(prob.inv_sigma2 * (r2 * r2).sum(-1), delta))
+    return torch.where(prob.valid, c, torch.zeros_like(c)).sum()
+
+
+def sim3_lm_iteration(state: Sim3State, prob: Sim3Problem, delta: float = math.sqrt(10.0)) -> Sim3State:
+    """One LM iteration of `optimize_sim3` (tensors in and out: the function
+    `LoopClosing` captures, at the default Huber width sqrt(10))."""
+    R, t, s, lam, cost = state
+    X1, inv_sigma1, inv_sigma2, valid = prob.X1, prob.inv_sigma1, prob.inv_sigma2, prob.valid
+    dt, dev = X1.dtype, X1.device
+    eye3 = torch.eye(3, dtype=dt, device=dev).expand(X1.shape[:-1] + (3, 3))
+    eye7 = torch.eye(7, dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    r1, r2, q1, q2 = _sim3_residuals(prob, R, t, s)
+    s1 = inv_sigma1 * (r1 * r1).sum(-1)
+    s2 = inv_sigma2 * (r2 * r2).sum(-1)
+    w1 = torch.where(valid, inv_sigma1 * huber_weight(s1, delta), zero)
+    w2 = torch.where(valid, inv_sigma2 * huber_weight(s2, delta), zero)
+    # direction 1: q1 = exp(d) S12 X2 => dq1/dd = [I | -hat(q1) | q1]
+    D1 = torch.cat([eye3, -lie.hat(q1), q1[..., None]], dim=-1)  # (N, 3, 7)
+    J1 = -(_proj_jacobian(prob.K1, q1) @ D1)  # (N, 2, 7), dr1/dd
+    # direction 2: q2 = (exp(d) S12)^-1 X1 = S12^-1 exp(-d) X1
+    # => dq2/dd = -s^-1 R^T [I | -hat(X1) | X1], dr2/dd = +Jp2 s^-1 R^T D2
+    D2 = torch.cat([eye3, -lie.hat(X1), X1[..., None]], dim=-1)
+    J2 = _proj_jacobian(prob.K2, q2) @ ((1.0 / s) * R.T @ D2)
+    H = (torch.einsum("nik,n,nil->kl", J1, w1, J1)
+         + torch.einsum("nik,n,nil->kl", J2, w2, J2))
+    g = -(torch.einsum("nik,n,ni->k", J1, w1, r1) + torch.einsum("nik,n,ni->k", J2, w2, r2))
+    Hd = H + lam * torch.diag_embed(torch.diagonal(H)) + 1e-8 * eye7
+    # solve_ex: the bits of solve without its host check of `info`
+    dx = torch.linalg.solve_ex(Hd, g)[0]
+    # clamp the scale increment (Sim3Parameterization guards the scale
+    # from collapsing)
+    dx = torch.cat([dx[:6], dx[6:].clamp(-2.0, 2.0)])
+    dR, dtv, ds = lie.sim3_exp(dx)
+    R_new, t_new, s_new = lie.sim3_compose(dR, dtv, ds, R, t, s)
+    new_cost = _sim3_cost(prob, R_new, t_new, s_new, delta)
+    accept = new_cost < cost
+    return Sim3State(R=torch.where(accept, R_new, R), t=torch.where(accept, t_new, t),
+                     s=torch.where(accept, s_new, s),
+                     lam=torch.where(accept, (lam * 0.33).clamp_min(1e-7), (lam * 4.0).clamp_max(1e5)),
+                     cost=torch.where(accept, new_cost, cost))
+
+
 def optimize_sim3(
     K1,
     K2,
@@ -55,6 +133,7 @@ def optimize_sim3(
     s0,
     max_iters: int = 15,
     chi2_th: float = 10.0,
+    step=None,
 ) -> Sim3Result:
     """Refine S12 (the camera-2 to camera-1 similarity) from matched
     camera-frame points.
@@ -62,63 +141,26 @@ def optimize_sim3(
     Residuals (Sim3ErrorTerm, both directions):
       r1 = uv1 - proj(K1, S12 X2),  r2 = uv2 - proj(K2, S12^-1 X1)
     Huber(sqrt(chi2_th)); LM on the 7-dof left increment.
+
+    Its set-up (the start projected onto SO(3), the first cost), `max_iters`
+    calls of `step(state, problem)` (by default `sim3_lm_iteration` at
+    `chi2_th`'s Huber width; `LoopClosing` passes its captured program,
+    whose width is the default's, so a step passed with another `chi2_th`
+    raises) and its finish (the inlier test).
     """
+    if step is not None and chi2_th != 10.0:
+        raise ValueError(f"optimize_sim3: a step passed with chi2_th {chi2_th}; its Huber width is sqrt(10)")
     delta = math.sqrt(chi2_th)
-    dev, dt = X1.device, X1.dtype
-    eye3 = torch.eye(3, dtype=dt, device=dev).expand(X1.shape[:-1] + (3, 3))
-    eye7 = torch.eye(7, dtype=dt, device=dev)
-    zero = torch.zeros((), dtype=dt, device=dev)
-
-    def residuals(R, t, s):
-        q1 = s * (X2 @ R.T) + t  # S12 X2 in camera 1
-        Ri, ti, si = lie.sim3_inverse(R, t, s)
-        q2 = si * (X1 @ Ri.T) + ti  # S12^-1 X1 in camera 2
-        return uv1 - _project(K1, q1), uv2 - _project(K2, q2), q1, q2
-
-    def cost_fn(R, t, s):
-        r1, r2, _, _ = residuals(R, t, s)
-        c = (huber_cost(inv_sigma1 * (r1 * r1).sum(-1), delta)
-             + huber_cost(inv_sigma2 * (r2 * r2).sum(-1), delta))
-        return torch.where(valid, c, zero).sum()
-
-    s = torch.as_tensor(s0, dtype=dt, device=dev)
+    prob = Sim3Problem(K1, K2, X1, X2, uv1, uv2, inv_sigma1, inv_sigma2, valid)
+    step = step or partial(sim3_lm_iteration, delta=delta)
+    s = torch.as_tensor(s0, dtype=X1.dtype, device=X1.device)
     R = lie.so3_project(R0)
-    t = t0
-    cost = cost_fn(R, t, s)
-    lam = torch.tensor(1e-3, dtype=dt, device=dev)
+    state = Sim3State(R, t0, s, torch.tensor(1e-3, dtype=X1.dtype, device=X1.device),
+                      _sim3_cost(prob, R, t0, s, delta))
     for _ in range(max_iters):
-        r1, r2, q1, q2 = residuals(R, t, s)
-        s1 = inv_sigma1 * (r1 * r1).sum(-1)
-        s2 = inv_sigma2 * (r2 * r2).sum(-1)
-        w1 = torch.where(valid, inv_sigma1 * huber_weight(s1, delta), zero)
-        w2 = torch.where(valid, inv_sigma2 * huber_weight(s2, delta), zero)
-        # direction 1: q1 = exp(d) S12 X2 => dq1/dd = [I | -hat(q1) | q1]
-        D1 = torch.cat([eye3, -lie.hat(q1), q1[..., None]], dim=-1)  # (N, 3, 7)
-        J1 = -(_proj_jacobian(K1, q1) @ D1)  # (N, 2, 7), dr1/dd
-        # direction 2: q2 = (exp(d) S12)^-1 X1 = S12^-1 exp(-d) X1
-        # => dq2/dd = -s^-1 R^T [I | -hat(X1) | X1], dr2/dd = +Jp2 s^-1 R^T D2
-        D2 = torch.cat([eye3, -lie.hat(X1), X1[..., None]], dim=-1)
-        J2 = _proj_jacobian(K2, q2) @ ((1.0 / s) * R.T @ D2)
-        H = (torch.einsum("nik,n,nil->kl", J1, w1, J1)
-             + torch.einsum("nik,n,nil->kl", J2, w2, J2))
-        g = -(torch.einsum("nik,n,ni->k", J1, w1, r1) + torch.einsum("nik,n,ni->k", J2, w2, r2))
-        Hd = H + lam * torch.diag_embed(torch.diagonal(H)) + 1e-8 * eye7
-        # solve_ex: the bits of solve without its host check of `info`
-        dx = torch.linalg.solve_ex(Hd, g)[0]
-        # clamp the scale increment (Sim3Parameterization guards the scale
-        # from collapsing)
-        dx = torch.cat([dx[:6], dx[6:].clamp(-2.0, 2.0)])
-        dR, dtv, ds = lie.sim3_exp(dx)
-        R_new, t_new, s_new = lie.sim3_compose(dR, dtv, ds, R, t, s)
-        new_cost = cost_fn(R_new, t_new, s_new)
-        accept = new_cost < cost
-        R = torch.where(accept, R_new, R)
-        t = torch.where(accept, t_new, t)
-        s = torch.where(accept, s_new, s)
-        lam = torch.where(accept, (lam * 0.33).clamp_min(1e-7), (lam * 4.0).clamp_max(1e5))
-        cost = torch.where(accept, new_cost, cost)
-    R = lie.so3_project(R)
-    r1, r2, _, _ = residuals(R, t, s)
+        state = step(state, prob)
+    R, t, s = lie.so3_project(state.R), state.t, state.s
+    r1, r2, _, _ = _sim3_residuals(prob, R, t, s)
     c1 = inv_sigma1 * (r1 * r1).sum(-1)
     c2 = inv_sigma2 * (r2 * r2).sum(-1)
     inliers = valid & (c1 <= chi2_th) & (c2 <= chi2_th)

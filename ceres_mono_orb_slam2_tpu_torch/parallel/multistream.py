@@ -272,13 +272,48 @@ def synthetic_stream_state(config, n_streams: int, n_map_points: int, seed: int 
     return images, state
 
 
-def make_multistream_local_ba(iters_huber: int = 5, iters_trimmed: int = 10):
+def make_multistream_local_ba(iters_huber: int = 5, iters_trimmed: int = 10,
+                              device=DEFAULT_DEVICE, graphs=None):
     """Batched local bundle adjustment: S independent streams' local-BA
     problems of one shape (P poses, M points, O observations, padded by
-    their masks) solved together by `optim.bundle_adjustment_streams`.
+    their masks) solved together by `optim.bundle_adjustment_streams` on
+    `device`.
 
     Returns fn(K, R (S,P,3,3), t, points (S,M,3), obs_pose (S,O), obs_point,
     obs_uv, obs_w, obs_valid, fixed (S,P), point_valid (S,M)) -> BAResult
-    with a leading stream axis on every field."""
-    return partial(optim.bundle_adjustment_streams,
-                   iters_huber=iters_huber, iters_trimmed=iters_trimmed)
+    with a leading stream axis on every field.
+
+    With graphs (by default where the device is CUDA; the JAX package's
+    jitted solve) each LM iteration of both passes replays a captured
+    program (`optim.lm_iteration_streams_robust` / `_trimmed`, owner
+    "mapper", one per key: the shapes and the index blocks' power-of-two
+    widths); `graphs=False` runs them op by op, and graphs=True on the CPU
+    stages them without capture (`utils/graphs.py`). The problem (its three
+    host reads) is built on the caller's stream; on CUDA the solve runs on
+    the mapper stream, which waits for the inputs alone, and the caller's
+    stream waits for the results alone (`graphs.share_with`). `fn.captured()`
+    lists the `CapturedFunction`s."""
+    device = resolve_device(device)
+    on = (device.type == "cuda") if graphs is None else graphs
+    steps = {f"{kind}_step": graphs_mod.CapturedFunction(
+        fn, device, name=f"stream_lba_lm_{kind}", owner="mapper", max_programs=4)
+        for kind, fn in (("robust", optim.lm_iteration_streams_robust),
+                         ("trimmed", optim.lm_iteration_streams_trimmed))} if on else {}
+
+    def solve(K, R, t, points, obs_pose, obs_point, obs_uv, obs_w, obs_valid, fixed, point_valid
+              ) -> optim.BAResult:
+        K, R, t, points, obs_pose, obs_point, obs_uv, obs_w, obs_valid, fixed, point_valid = (
+            torch.as_tensor(a, device=device) for a in (K, R, t, points, obs_pose, obs_point, obs_uv,
+                                                         obs_w, obs_valid, fixed, point_valid))
+        prob = optim.ba_streams_problem(K, obs_pose, obs_point, obs_uv, obs_w, fixed, point_valid)
+        caller = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        inputs = graphs_mod.share_with("mapper", (R, t, points, obs_valid) + tuple(prob))
+        with graphs_mod.on_owner_stream(device, "mapper"):
+            graphs_mod.wait_for(inputs)
+            res = optim.solve_ba_streams(prob, R, t, points, obs_valid, iters_huber, iters_trimmed, **steps)
+            results = graphs_mod.share_with(caller, res)
+        graphs_mod.wait_for(results)
+        return res
+
+    solve.captured = lambda: list(steps.values())
+    return solve

@@ -252,17 +252,17 @@ def stream_name(stream) -> str:
     return hex(stream.cuda_stream)
 
 
-def share_with(owner: str, tensors):
+def share_with(owner, tensors):
     """Hand CUDA tensors written on the current stream over to `owner`'s
-    stream: the allocator keeps each one's memory until the work that
-    owner's stream has queued when it is freed is done (`record_stream`),
-    and the returned event, recorded on the current stream behind the
-    writes, is what a reader on that stream waits on (`wait_for`). None
-    when no tensor is on CUDA."""
+    stream (or to the stream `owner`): the allocator keeps each one's memory
+    until the work that stream has queued when it is freed is done
+    (`record_stream`), and the returned event, recorded on the current
+    stream behind the writes, is what a reader on that stream waits on
+    (`wait_for`). None when no tensor is on CUDA."""
     tensors = [t for t in tensors if isinstance(t, torch.Tensor) and t.device.type == "cuda"]
     if not tensors:
         return None
-    dst = owner_stream(tensors[0].device, owner)
+    dst = owner if isinstance(owner, torch.cuda.Stream) else owner_stream(tensors[0].device, owner)
     for t in tensors:
         t.record_stream(dst)
     ready = torch.cuda.Event()

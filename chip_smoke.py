@@ -46,7 +46,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      pose equal to the bit, the ms of one attempt (eager, replayed, first
      call), of the initial global BA, and the host API launches of one
      attempt both ways; one S=8
-     `make_multistream_step`; the median frame of both; one fused frame of
+     `make_multistream_step`; the batched local BA (its LM iterations
+     replayed under IF nodes on `done`) on batches A, B, A, C, D, E of 8
+     windows (their index widths before and after the widening) and the
+     loop closer's Sim(3) refinement (its LM iteration replayed at
+     one padded row count) on two problems, each equal to op by op to the
+     bit, A's second solve and the second refinement replayed; the median
+     frame of both; one fused frame of
      each under torch.profiler: its host API launches (`cudaLaunchKernel`,
      `cudaGraphLaunch`) and copies, and its kernels on the card against the
      replay-counted launches; the memory of every program;
@@ -90,12 +96,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      essential graph and global BA run through the full system; the second
      run threaded, its global BA on the `gba` thread, paced by
      `wait_mapper_idle()` and a join of the `gba` thread after each frame,
-     equal to the first to the bit;
+     equal to the first to the bit; the Sim(3) refinements' row count and
+     their program's captures and replays;
   9. `[multistream]`: `make_multistream_step` at 1241x376, 2000 features and
      4096 map points a stream on `synthetic_stream_state`, S=8 against each
      stream alone (counts equal, poses within a tolerance), the step's time
      and device launches at S=1 and S=8, one launch of each kernel a step;
-     the batched local BA of 8 problems against 8 single solves;
+     the batched local BA of 8 problems against 8 single solves, replayed
+     and op by op (both timed, equal to the bit, captures and replays);
  10. `[multisystem]`: `MultiStreamSLAM` with 8 streams over 18 rendered
      1241x376 frames each, stream 0 the spiral of phase 4: its decisions
      equal to the serial run's and its camera centres within 1e-3 of it,
@@ -921,15 +929,16 @@ def solver_extraction(seq, cfg):
     return launches, 16
 
 
-def solver_sim3(seed: int = 1, N: int = 300, NH: int = 256):
-    """ransac_sim3 then optimize_sim3 on N matches, 30% of them wrong, of a
-    known similarity."""
-    from ceres_mono_orb_slam2_tpu_torch.ops import lie, sim3opt, sim3solver
+SIM3_XI = (0.2, -0.1, 0.3, 0.05, -0.04, 0.08, float(np.log(1.3)))  # the true S12 of the Sim(3) problems
+
+
+def sim3_matches(seed: int, N: int):
+    """N matches of the similarity `SIM3_XI` with 0.3 px noise, 30% of them
+    wrong, as numpy: (X1, X2, uv1, uv2) float64 and the wrong ones' mask."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import lie
 
     rng = np.random.default_rng(seed)
-    K = _dev([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1]], np.float32)
-    xi = torch.tensor([0.2, -0.1, 0.3, 0.05, -0.04, 0.08, float(np.log(1.3))])
-    R12, t12, s12 = (a.numpy() for a in lie.sim3_exp(xi))
+    R12, t12, s12 = (a.numpy() for a in lie.sim3_exp(torch.tensor(SIM3_XI)))
     X2 = np.stack([rng.uniform(-2, 2, N), rng.uniform(-1.5, 1.5, N), rng.uniform(4, 8, N)], -1)
     X1 = s12 * X2 @ R12.T + t12
     proj = lambda X: 500.0 * X[:, :2] / X[:, 2:] + np.array([320.0, 240.0])  # noqa: E731
@@ -937,6 +946,18 @@ def solver_sim3(seed: int = 1, N: int = 300, NH: int = 256):
     uv2 = proj(X2) + rng.standard_normal((N, 2)) * 0.3
     bad = rng.random(N) < 0.3
     X1[bad] = rng.permutation(X1)[bad] + rng.uniform(0.5, 1.0, (int(bad.sum()), 3))
+    return (X1, X2, uv1, uv2), bad
+
+
+def solver_sim3(seed: int = 1, N: int = 300, NH: int = 256):
+    """ransac_sim3 then optimize_sim3 on N matches, 30% of them wrong, of a
+    known similarity."""
+    from ceres_mono_orb_slam2_tpu_torch.ops import lie, sim3opt, sim3solver
+
+    K = _dev([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1]], np.float32)
+    xi = torch.tensor(SIM3_XI)
+    s12 = float(torch.exp(xi[6]))
+    (X1, X2, uv1, uv2), bad = sim3_matches(seed, N)
     args = tuple(_dev(a, np.float32) for a in (X1, X2, uv1, uv2, np.ones(N), np.ones(N)))
     valid = torch.ones(N, dtype=torch.bool, device="cuda")
     noise = torch.rand((NH, N), device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
@@ -1253,20 +1274,12 @@ def run_loop(threaded: bool = False):
     """One run of the closed geometric circle through the full system;
     threaded, each frame waits for the mapper thread and for a running
     global BA, so that the run makes the serial run's every decision."""
-    from ceres_mono_orb_slam2_tpu_torch.ops import sim3opt
     from ceres_mono_orb_slam2_tpu_torch.utils.geosim import frame_image
     from ceres_mono_orb_slam2_tpu_torch.utils.synthetic import ate_rmse
 
     slam, gt_c = loop_system(threaded)
     gx = slam.tracker.extractor
-    est, gt, frame_ms, changed, refined = [], [], [], [], []
-    refine = sim3opt.optimize_sim3
-
-    def counted_refine(K1, K2, X1, *a, **kw):
-        """The loop closer's Sim(3) refinement, its match count recorded
-        (how often a program per count would replay)."""
-        refined.append(X1.shape[0])
-        return refine(K1, K2, X1, *a, **kw)
+    est, gt, frame_ms, changed = [], [], [], []
 
     def frame(i):
         T = slam.track_monocular(frame_image(i, TUM_H, TUM_W), i / 30.0)
@@ -1278,17 +1291,13 @@ def run_loop(threaded: bool = False):
                 gba.join(timeout=JOIN_TIMEOUT_S)
         return T
 
-    sim3opt.optimize_sim3 = counted_refine
-    try:
-        for i in range(LOOP_FRAMES):
-            T, ms = timed(lambda: frame(i))
-            frame_ms.append(ms)
-            changed.append(slam.map_changed())
-            if T is not None:
-                est.append(-T[:3, :3].T @ T[:3, 3])
-                gt.append(gt_c[i])
-    finally:
-        sim3opt.optimize_sim3 = refine
+    for i in range(LOOP_FRAMES):
+        T, ms = timed(lambda: frame(i))
+        frame_ms.append(ms)
+        changed.append(slam.map_changed())
+        if T is not None:
+            est.append(-T[:3, :3].T @ T[:3, 3])
+            gt.append(gt_c[i])
     est, gt = np.stack(est), np.stack(gt)
     traj = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
     n_kp = np.mean([(s >= 0).sum() for s in gx.slot_lm_by_frame.values()])
@@ -1298,7 +1307,7 @@ def run_loop(threaded: bool = False):
         slam.shutdown()
     return dict(slam=slam, state=state, tracked=len(est), frame_ms=frame_ms,
                 ate_pct=100.0 * ate_rmse(est, gt) / traj, centre_sum=float(est.sum()),
-                changed=changed, mean_keypoints=float(n_kp), worker_alive=alive, refined=refined)
+                changed=changed, mean_keypoints=float(n_kp), worker_alive=alive)
 
 
 def phase_loop():
@@ -1328,8 +1337,10 @@ def phase_loop():
                 f"{st['gba_ms']:.1f} ms (P={st.get('P')} M={st.get('M')} O={st.get('O')}, "
                 f"{st.get('solver')} solver); frame of the closure "
                 f"{max(run['frame_ms']):.1f} ms, median frame {np.median(run['frame_ms'][10:]):.1f} ms")
-        log(f"[loop] run {r}: Sim(3) refinements (op by op) {len(run['refined'])}, their match counts "
-            f"{run['refined']}")
+        sim3 = lc._sim3_step.report()
+        log(f"[loop] run {r}: Sim(3) refinements {sum(p['calls'] for p in sim3) // 15} (15 LM iterations "
+            f"each), their program's rows, captures and replays "
+            f"{[(max(d[0] for d in p['shapes'] if d), p['captures'], p['replays']) for p in sim3]}")
         log(f"[loop] run {r} repeat check: ATE {run['ate_pct']!r} %, sum of camera centres "
             f"{run['centre_sum']!r}")
         checks = {
@@ -1373,9 +1384,32 @@ def ba_window(seed: int, P: int = 16, M: int = 2048, O: int = 8192):
             np.arange(P) < 4, np.ones(M, bool))
 
 
+def ba_batch(seeds):
+    """The `ba_window`s of `seeds` on the card, one by one and stacked as
+    the batched local BA takes them: (windows, (K, R (S, P, 3, 3), ...))."""
+    one = [tuple(_dev(a) for a in ba_window(s)) for s in seeds]
+    return one, (one[0][0],) + tuple(torch.stack([p[i] for p in one]) for i in range(1, 11))
+
+
+def index_widths(batch) -> tuple:
+    """The widths (by pose, by point, by pair) of the batched local BA's
+    index blocks of `batch` before their widening: its largest segments."""
+    S, P = batch[9].shape
+    M = batch[10].shape[1]
+    stream = torch.arange(S, device="cuda")[:, None]
+    op, oj = (batch[4].long() + stream * P).reshape(-1), (batch[5].long() + stream * M).reshape(-1)
+    return tuple(int(torch.bincount(k).max()) for k in (op, oj, oj * P + batch[4].long().reshape(-1)))
+
+
+def stream_ba_programs(solve) -> list:
+    """(name, captures, replays, kept) of the batched local BA's programs."""
+    return [(d["name"], d["captures"], d["replays"], d["kept"]) for d in (f.summary() for f in solve.captured())]
+
+
 def phase_multistream(cfg):
     """The batched multi-stream step at S=8 against each stream alone, its
-    time and launches at S=1 and S=8, and the batched local BA."""
+    time and launches at S=1 and S=8, and the batched local BA, replayed and
+    op by op."""
     from ceres_mono_orb_slam2_tpu_torch.ops import optim
     from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
     from ceres_mono_orb_slam2_tpu_torch.parallel import multistream as ms
@@ -1409,22 +1443,27 @@ def phase_multistream(cfg):
     log(f"[multistream] device launches S={S} / S=1: {timing[S][1] / timing[1][1]:.3f}; "
         f"step ms S={S} / S=1: {timing[S][0] / timing[1][0]:.3f}")
 
-    # the batched local BA: 8 windows in one solve against 8 single solves
-    probs = [ba_window(s) for s in range(S)]
-    one = [tuple(_dev(a) for a in p) for p in probs]
-    batch = (one[0][0],) + tuple(torch.stack([p[i] for p in one]) for i in range(1, 11))
-    solve_batch = lambda: ms.make_multistream_local_ba()(*batch)  # noqa: E731
+    # the batched local BA: 8 windows in one solve, its LM iterations
+    # replayed and op by op, against 8 single solves
+    one, batch = ba_batch(range(S))
+    solvers = [ms.make_multistream_local_ba(device="cuda", graphs=g) for g in (True, False)]
+    solve_batch, solve_eager = (lambda f=f: f(*batch) for f in solvers)
     solve_each = lambda: [optim.bundle_adjustment(*p) for p in one]  # noqa: E731
-    solve_batch(), solve_each()  # warm-up
-    rb, ms_b = timed(solve_batch)
+    solve_batch(), solve_eager(), solve_each()  # warm-up (the first captures)
+    ms_all = [[timed(solve_batch)[1], timed(solve_eager)[1]] for _ in range(3)]
+    ms_b, ms_e = (float(np.median(m)) for m in zip(*ms_all))
+    (rb, _), (re_, _) = timed(solve_batch), timed(solve_eager)
     rs, ms_s = timed(solve_each)
     centre = lambda R, t: -(R.transpose(-1, -2) @ t[..., None])[..., 0]  # noqa: E731
     err_c = max(float((centre(rb.R[s], rb.t[s]) - centre(rs[s].R, rs[s].t)).abs().max()) for s in range(S))
     err_p = max(float((rb.points[s] - rs[s].points).abs().max()) for s in range(S))
     same_inl = all(torch.equal(rb.inlier_obs[s], rs[s].inlier_obs) for s in range(S))
     rel_cost = max(abs(float(rb.cost[s]) / float(rs[s].cost) - 1.0) for s in range(S))
-    log(f"[multistream] batched local BA, S={S} x (P=16, M=2048, O=8192): {ms_b:.1f} ms, "
-        f"{device_launches(solve_batch)} launches; {S} single solves {ms_s:.1f} ms, "
+    log(f"[multistream] batched local BA, S={S} x (P=16, M=2048, O=8192): replayed {ms_b:.1f} ms, op by op "
+        f"{ms_e:.1f} ms (medians of 3, in turns: {[[round(x, 1) for x in m] for m in ms_all]}), replayed / op "
+        f"by op {ms_b / ms_e:.3f}; device launches replayed {device_launches(solve_batch)}, op by op "
+        f"{device_launches(solve_eager)}; programs (captures, replays, kept) {stream_ba_programs(solvers[0])}; "
+        f"replay equal to op by op to the bit: {same_bits(rb, re_)}; {S} single solves {ms_s:.1f} ms, "
         f"{device_launches(solve_each)} launches; per stream against its single solve: camera centres "
         f"within {err_c:.2e}, points within {err_p:.2e}, relative cost within {rel_cost:.2e}, "
         f"inlier observations equal: {same_inl}")
@@ -1438,6 +1477,7 @@ def phase_multistream(cfg):
         "BA camera centres within 1e-3 and points within 5e-2 of the single solves":
             err_c < 1e-3 and err_p < 5e-2,
         "BA costs within 1e-3 relative": rel_cost < 1e-3,
+        "batched BA replayed equal to op by op to the bit": same_bits(rb, re_),
     }
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
@@ -2504,7 +2544,8 @@ def eager_mapper(slam):
 
     lm = LocalMapping(slam.config, slam.map, loop_closer=slam.loop_closer, device="cuda", graphs=False)
     slam.local_mapper = slam.tracker.local_mapper = slam.loop_closer.local_mapper = lm
-    slam.loop_closer._eg_step, slam.loop_closer._gba_steps = None, {}  # its graphs=False
+    lc = slam.loop_closer
+    lc._sim3_step, lc._eg_step, lc._gba_steps = None, None, {}  # its graphs=False
     return slam
 
 
@@ -2559,6 +2600,60 @@ def graphs_loop_pair(checks: dict):
         f"the mapper's programs {program_summaries(systems[0])}")
     checks["geo-circle serial: essential graph and post-closure poses equal to the bit"] = (
         same_eg and same_closures and diff is None and len(eg[0]) >= 1 and len(closures[0]) >= 1)
+
+
+def graphs_mapper_solvers(cfg, checks: dict):
+    """The last two one-card programs the JAX package jits, replayed against
+    op by op: the batched local BA (`make_multistream_local_ba`, batches A,
+    B, A again, C, D and E of S=8 windows at [multistream]'s shape: a
+    program per key, the shapes and the index blocks' power-of-two widths,
+    so a batch whose widened widths are new captures its own, and A's
+    second solve replays; beside them the widths before the widening, which
+    would key a program each) and the loop closer's Sim(3) refinement
+    (`LoopClosing.refine_sim3`, two problems of other match counts padded
+    to the keypoint capacity, the second replaying), each equal to the bit,
+    with the ms of both."""
+    from ceres_mono_orb_slam2_tpu_torch.models.loopclosing import LoopClosing
+    from ceres_mono_orb_slam2_tpu_torch.models.map import Map
+    from ceres_mono_orb_slam2_tpu_torch.ops import lie
+    from ceres_mono_orb_slam2_tpu_torch.parallel import multistream as ms
+    from ceres_mono_orb_slam2_tpu_torch.utils.config import SlamConfig
+
+    solvers = [ms.make_multistream_local_ba(device="cuda", graphs=g) for g in (True, False)]
+    ba, widths = [], []  # per solve: (equal to the bit, ms replayed or capturing, ms op by op, programs)
+    for first in (0, 1, 0, 2, 3, 4):
+        _, batch = ba_batch(range(first * N_STREAMS, (first + 1) * N_STREAMS))
+        (rg, ms_g), (re_, ms_e) = (timed(lambda f=f: f(*batch)) for f in solvers)
+        ba.append((same_bits(rg, re_), round(ms_g, 1), round(ms_e, 1), stream_ba_programs(solvers[0])))
+        widths.append(index_widths(batch))
+    widened = [tuple(1 << (w - 1).bit_length() for w in ws) for ws in widths]
+    # the default camera (fx = fy = 500, cx = 320, cy = 240) of `sim3_matches`
+    closers = [LoopClosing(SlamConfig(), Map(), None, device="cuda", graphs=g) for g in (True, False)]
+    rows = cfg.orb.n_features  # a spiral keyframe's keypoint capacity
+    start = tuple(x.cuda() for x in lie.sim3_exp(torch.tensor(SIM3_XI) + torch.tensor(
+        [0.03, -0.02, 0.04, 0.01, 0.01, -0.01, 0.05])))
+    sim3 = []  # per problem: (equal to the bit, ms replayed or capturing, ms op by op, captures, replays)
+    for seed, n in ((1, 300), (2, 200)):
+        arrays = tuple(a.astype(np.float32) for a in sim3_matches(seed, n)[0]) + (
+            np.ones(n, np.float32), np.ones(n, np.float32))
+        (og, ms_g), (oe, ms_e) = (timed(lambda lc=lc: on_mapper_stream(
+            lambda: lc.refine_sim3(arrays, *start, rows=rows))) for lc in closers)
+        d = closers[0]._sim3_step.summary()
+        sim3.append((same_bits(og, oe), round(ms_g, 2), round(ms_e, 2), int(og.n_inliers), d["captures"],
+                     d["replays"]))
+    log(f"[graphs] batched local BA, S={N_STREAMS} x (P=16, M=2048, O=8192), batches A, B, A, C, D, E (equal to "
+        f"the bit, ms replayed or capturing, ms op by op, programs: captures, replays, kept): {ba}")
+    log(f"[graphs] batched local BA index widths (by pose, by point, by pair) of A, B, A, C, D, E: {widths}, "
+        f"widened {widened}; distinct keys: {len(set(widths))} unwidened (the captures of a run without the "
+        f"widening), {len(set(widened))} widened")
+    log(f"[graphs] Sim(3) refinement padded to {rows} rows, 300 then 200 matches (equal to the bit, ms "
+        f"replayed or capturing, ms op by op, inliers, captures, replays): {sim3}")
+    captures = [[p[1] for p in b[3]] for b in ba]
+    checks["batched local BA: replay equal to op by op to the bit, A's second solve replayed"] = (
+        all(b[0] for b in ba) and captures[2] == captures[1] and len(captures[2]) == 2
+        and captures[-1] == [len(set(widened))] * 2)
+    checks["Sim(3) refinement: replay equal to op by op to the bit, one program, 60% of the matches inliers"] = (
+        all(r[0] for r in sim3) and sim3[1][4:] == (1, 29) and min(r[3] for r in sim3) >= 120)
 
 
 def graphs_streams(checks: dict):
@@ -2909,6 +3004,9 @@ def phase_graphs(seq, cfg):
         f"round of its pose solve, graphs / eager {step_iters[0]} / {step_iters[1]}; programs "
         f"{mb(steps[0].programs())}")
     checks["S=8 batched step: replay equal to eager to the bit"] = same and step_iters[0] == step_iters[1]
+
+    # the batched local BA and the Sim(3) refinement
+    graphs_mapper_solvers(cfg, checks)
 
     # geo-circle-72 serial through both systems: the essential graph of each
     # closure (its GN iterations replayed against eager), then the poses

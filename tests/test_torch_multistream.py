@@ -428,7 +428,8 @@ def test_batched_local_ba(rng):
     stack = lambda i: np.stack([p[i] for p in probs])  # noqa: E731
     res_j = jms.make_multistream_local_ba()(jnp.asarray(probs[0][0]),
                                             *(jnp.asarray(stack(i)) for i in range(1, 11)))
-    res_b = tms.make_multistream_local_ba()(T(probs[0][0]), *(T(stack(i)) for i in range(1, 11)))
+    res_b = tms.make_multistream_local_ba(device="cpu")(T(probs[0][0]),
+                                                        *(T(stack(i)) for i in range(1, 11)))
     assert res_b.R.shape == (S, 4, 3, 3) and res_b.cost.shape == (S,)
     for s in range(S):
         res_s = optim.bundle_adjustment(*(T(x) for x in probs[s]))
