@@ -37,6 +37,15 @@ def compute_image_bounds(cam, h: int, w: int) -> np.ndarray:
     )
 
 
+def undistorted_keypoints(xy: torch.Tensor, cam) -> torch.Tensor:
+    """A frame's undistorted keypoints (N, 2): `xy` itself for a lens
+    without distortion."""
+    if not cam.has_distortion:
+        return xy
+    return camera.undistort_points(xy, torch.as_tensor(cam.K, device=xy.device),
+                                   torch.as_tensor(cam.dist_coeffs, device=xy.device))
+
+
 class Frame:
     # host-side keypoint arrays, materialised together on first access
     _HOST_FIELDS = ("kp_xy", "kp_octave", "kp_angle", "kp_response",
@@ -121,13 +130,7 @@ class Frame:
         if self._j_und is None:
             with self._lock:
                 if self._j_und is None:
-                    cam = self._cam
-                    if cam.has_distortion:
-                        self._j_und = camera.undistort_points(
-                            self.j_xy, torch.as_tensor(cam.K, device=self.device),
-                            torch.as_tensor(cam.dist_coeffs, device=self.device))
-                    else:
-                        self._j_und = self.j_xy
+                    self._j_und = undistorted_keypoints(self.j_xy, self._cam)
         return self._j_und
 
     @property

@@ -191,6 +191,16 @@ class MonoSLAM:
     def max_keyframe_wait_ms(self) -> float:
         return max(self.keyframe_wait_ms, default=0.0)
 
+    def prewarm(self, h: int, w: int) -> dict:
+        """Capture, before the first frame, every tracker program whose key
+        the configuration and the (h, w) image size fix, and the loop
+        closer's Sim(3) refinement (`models/prewarm.py`), so that no frame
+        of the live loop stalls for a capture. Returns {phase: seconds since
+        the start, ..., "total_s": seconds}. Raises after the first frame."""
+        from ceres_mono_orb_slam2_tpu_torch.models.prewarm import prewarm
+
+        return prewarm(self, h, w)
+
     def track_monocular(self, image: np.ndarray, timestamp: float):
         """Reference TrackMonocular (MonoORBSlam.cc:103-141): returns Tcw
         (4, 4) numpy or None (pipelined: the pose of the frame before, one

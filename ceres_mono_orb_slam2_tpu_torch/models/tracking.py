@@ -192,7 +192,7 @@ class Tracking:
         return torch.rand(shape, generator=self.generator, device=self.device)
 
     def build_frame(self, image: np.ndarray, timestamp: float) -> Frame:
-        self._ensure_bounds(image)
+        self.set_image_size(*image.shape[-2:])
         feats = self._extract(image)
         feats = type(feats)(*(a[0] for a in feats))
         return Frame(feats, self.cam, timestamp, frame_id=next(self._frame_seq))
@@ -212,9 +212,11 @@ class Tracking:
                 ex.extract, self.device, name="extract", lock=lambda m=self.map: m.update_lock))
         return self._extraction[1](self._host(image))
 
-    def _ensure_bounds(self, image):
+    def set_image_size(self, h: int, w: int):
+        """The undistorted image bounds of an (h, w) image, which the first
+        frame sets (`MonoSLAM.prewarm` sets them before it)."""
         if self.bounds is None:
-            self.bounds = compute_image_bounds(self.cam, image.shape[-2], image.shape[-1])
+            self.bounds = compute_image_bounds(self.cam, h, w)
             self.j_bounds = self._dev(self.bounds)
             self.map.image_bounds = self.bounds
 
@@ -384,13 +386,14 @@ class Tracking:
         self._track_serial(image, timestamp)
         return True
 
-    def _fused_dispatch(self, args):
+    def _fused_dispatch(self, args, feats=None):
         """The device phase of one fused frame, enqueued and not waited for:
         extraction, pool gather, the fused step and its packed control
         buffer. Returns (out, feats, ctl, local block): the gathered block
         is what a chained frame of the pipelined mode matches against (with
         graphs, the program's static buffers: `_start_pipeline` keeps a
-        copy)."""
+        copy). `feats` (a batch of one) stands in for the extractor's
+        features of the image (`models/prewarm.py`)."""
         from ceres_mono_orb_slam2_tpu_torch.models import fused_track
 
         (image, last_oct, last_angle, last_desc, last_pos, last_ok, last_local_row,
@@ -400,9 +403,10 @@ class Tracking:
                                                  th_local))
             out, f1, ctl = self._run_frontend(image, True, host, self._dummies(len(last_pos))[1],
                                               (last_oct, last_angle, last_desc),
-                                              pool.gather_fills(slots_padded))
+                                              pool.gather_fills(slots_padded), feats)
             return out, f1, ctl, self._frontend[1].last_inputs[5]
-        feats = self.extractor.extract(image)
+        if feats is None:
+            feats = self.extractor.extract(image)
         f1 = type(feats)(*(a[0] for a in feats))
         lblock = pool.gather(slots_padded)
         out = self._ensure_fused_step()(
@@ -440,15 +444,18 @@ class Tracking:
 
         return frontend
 
-    def _run_frontend(self, image, use_host: bool, host, chain, last, lblock):
+    def _run_frontend(self, image, use_host: bool, host, chain, last, lblock, feats=None):
         """One fused frame through the frontend program: (out, feats, ctl),
-        clones that outlive the next replay."""
+        clones that outlive the next replay. `feats` stands in for a
+        non-image extractor's features of the image."""
         ex = self.extractor
         if self._frontend is None or self._frontend[0] is not ex:
             self._frontend = (ex, graphs_mod.CapturedFunction(
                 self._frontend_fn(ex), self.device, name="frontend",
                 lock=lambda m=self.map: m.update_lock))
-        cur = self._host(image) if isinstance(ex, ORBExtractor) else ex.extract(image)
+        cur = feats
+        if cur is None:
+            cur = self._host(image) if isinstance(ex, ORBExtractor) else ex.extract(image)
         flag = self._const(("use_host", use_host),
                            lambda: torch.tensor(use_host, device=self.device))
         return self._frontend[1](cur, flag, host, chain, last, lblock, self.j_bounds)

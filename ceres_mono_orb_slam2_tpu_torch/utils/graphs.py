@@ -374,13 +374,17 @@ def _contiguous_strides(shape) -> tuple:
 def _staged_strides(a: torch.Tensor) -> tuple:
     """The strides of a's static buffer: a's own where they lay it out
     densely (a permutation of the contiguous layout: a transposed view,
-    say), else contiguous (a broadcast, a strided slice)."""
+    say), else contiguous (a broadcast, a strided slice). The stride of a
+    dimension of size 1 is no part of a layout: it is the contiguous one,
+    so that `x[None]` of numpy (stride 0) and `torch.zeros` (stride n) key
+    one program."""
+    contiguous = _contiguous_strides(a.shape)
     expected = 1
     for d in sorted(range(a.dim()), key=lambda d: (a.stride(d), a.shape[d])):
         if a.shape[d] != 1 and a.stride(d) != expected:
-            return _contiguous_strides(a.shape)
+            return contiguous
         expected *= a.shape[d]
-    return tuple(a.stride())
+    return tuple(c if n == 1 else st for n, st, c in zip(a.shape, a.stride(), contiguous))
 
 
 class Program:

@@ -615,6 +615,10 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
     name = "pipelined" if pipelined else "threaded"
     n = N_FRAMES if pipelined else THREADED_FRAMES
     slam = MonoSLAM(cfg, device="cuda", threaded=True, pipelined=pipelined)
+    if not pipelined:  # as a user's loop prewarms before its frame 0
+        phases, ms = timed(lambda: slam.prewarm(*seq.images.shape[-2:]))
+        log(f"[{name}] prewarm {ms:.1f} ms, phases (s since its start) "
+            f"{ {key: round(v, 3) for key, v in phases.items()} }")
     torch.cuda.synchronize()
     k.reset_launch_counts()
     poses, frame_ms = [], []
@@ -659,7 +663,9 @@ def phase_concurrent(seq, cfg, serial: dict, pipelined: bool):
     log(f"[{name}] ATE {ate_pct:.4f}% of {traj_len:.3f} m (repeat check: ATE {ate_pct!r} %, sum of camera "
         f"centres {float(est.sum())!r}); per-frame ms (frames 10+): median {np.median(steady):.2f}, p95 "
         f"{np.percentile(steady, 95):.2f}, max {steady.max():.2f} beside the serial run's median "
-        f"{np.median(serial_steady):.2f}, p95 {np.percentile(serial_steady, 95):.2f}; whole run "
+        f"{np.median(serial_steady):.2f}, p95 {np.percentile(serial_steady, 95):.2f}; "
+        f"{'' if pipelined else f'first fused frame {first_fused_ms(slam, seq.timestamps, frame_ms):.1f} ms; '}"
+        f"whole run "
         f"{total_s:.2f} s with {'the pacing and ' if pipelined else ''}the drain at shutdown beside the "
         f"serial run's {serial_s:.2f} s")
     log(f"[{name}] mapper: {len(lm.pass_ms)} passes, {mapping_s:.2f} s in all, mean stage ms "
@@ -2497,10 +2503,31 @@ def graph_pair(cfg, **kw) -> list:
     return pair
 
 
+def program_captures(slam) -> dict:
+    """Captures so far of each of the tracker's and the loop closer's
+    programs, by name."""
+    progs = slam.tracker.captured() + (slam.loop_closer.captured() if slam.loop_closer else [])
+    return {f.name: f.n_captures for f in progs}
+
+
+def recaptured(slam, after_prewarm: dict) -> list:
+    """The programs that prewarm captured and that captured again since (a
+    live frame that met a key prewarm missed)."""
+    now = program_captures(slam)
+    return [name for name, n in after_prewarm.items() if n and now[name] != n]
+
+
+def first_fused_ms(slam, timestamps, frame_ms) -> float:
+    """The ms of the first frame that `slam`'s tracker fused, from the host
+    ms of each frame in `timestamps`' order."""
+    ts = next(st["timestamp"] for st in slam.tracker.frame_stats if st["method"] == "fused")
+    return frame_ms[[float(t) for t in timestamps].index(float(ts))]
+
+
 def lockstep(pair, frames, images, timestamps):
     """Each frame through both systems in turn: per system its poses and the
     host ms of each `track_monocular` call (ending in a synchronisation)."""
-    poses, frame_ms = [[], []], [[], []]
+    poses, frame_ms = [[] for _ in pair], [[] for _ in pair]
     for i in frames:
         for j, (slam, _) in enumerate(pair):
             torch.cuda.synchronize()
@@ -2834,6 +2861,7 @@ def phase_graphs(seq, cfg):
     each mapping pass of the serial spiral, and the closed geometric circle's
     essential graphs and post-closure poses against its mapper op by op
     (`graphs_loop_pair`)."""
+    from ceres_mono_orb_slam2_tpu_torch.models.system import MonoSLAM
     from ceres_mono_orb_slam2_tpu_torch.models.tracking import State
     from ceres_mono_orb_slam2_tpu_torch.ops.orb import kernels as k
     from ceres_mono_orb_slam2_tpu_torch.parallel import multistream as ms
@@ -2853,11 +2881,36 @@ def phase_graphs(seq, cfg):
                         for p in progs]
 
     # the spiral, serial: frame times side by side, then one fused frame of
-    # each system under the profiler (the tracker only, mapping after it)
+    # each system under the profiler (the tracker only, mapping after it);
+    # beside them a third system, prewarmed (`MonoSLAM.prewarm`), which
+    # must make every decision of the first to the bit and capture none of
+    # its prewarmed programs again
     pair = graph_pair(cfg)
-    passes = [record_passes(slam.local_mapper) for slam, _ in pair]
-    poses, frame_ms = lockstep(pair, range(GRAPH_FRAMES), seq.images, seq.timestamps)
-    n_extract += 2 * GRAPH_FRAMES
+    warm = MonoSLAM(cfg, device="cuda")
+    warm_phases = warm.prewarm(H, W)
+    warm_captures = program_captures(warm)
+    trio = pair + [(warm, record_phases(warm.tracker))]
+    passes = [record_passes(slam.local_mapper) for slam, _ in trio]
+    poses, frame_ms = lockstep(trio, range(GRAPH_FRAMES), seq.images, seq.timestamps)
+    n_extract += 3 * GRAPH_FRAMES
+    warm_diff = (first_difference(trio[2][1], trio[0][1]) or first_pose_difference(poses[2], poses[0])
+                 or first_map_difference(passes[2], passes[0]))
+    warm_again = recaptured(warm, warm_captures)
+    first_fused = [first_fused_ms(slam, seq.timestamps, fms) for (slam, _), fms in zip(trio, frame_ms)]
+    log(f"[graphs] spiral serial, prewarmed system: prewarm phases (s since its start) "
+        f"{ {k: round(v, 3) for k, v in warm_phases.items()} }; device phases, poses and every keyframe pose "
+        f"and map point after each mapping pass equal to the unprewarmed graphs system's to the bit: "
+        f"{warm_diff is None}{'' if warm_diff is None else ' (' + warm_diff + ')'}; programs captured "
+        f"again after prewarm {warm_again}; first fused frame ms prewarmed {first_fused[2]:.2f}, "
+        f"unprewarmed graphs {first_fused[0]:.2f}, eager {first_fused[1]:.2f}; median frame ms (frames "
+        f"10+) prewarmed {float(np.median(frame_ms[2][10:])):.2f}")
+    checks["spiral serial: the prewarmed system equal to the unprewarmed one to the bit"] = (
+        warm_diff is None and len(trio[2][1]) >= 10 and len(passes[2]) >= 3)
+    checks["spiral serial: no prewarmed program captured again; the first fused frame a replay"] = (
+        not warm_again and warm.tracker._frontend[1].n_captures == 1
+        and warm.tracker._frontend[1].n_replays == len(trio[2][1]))
+    del warm, trio
+    poses, frame_ms, passes = poses[:2], frame_ms[:2], passes[:2]
     profiles = []
     for slam, _ in pair:
         before = dict(k.launch_counts)

@@ -17,12 +17,14 @@ host copies of `Frame` / `KeyFrame` under two threads.
 - A frame that wanted a keyframe the busy mapper could not take makes the
   next frame wait for local mapping; the wait ends when local mapping is
   idle, while a loop closure on the mapper thread runs on, and a wait that
-  runs into its timeout raises.
+  runs into its timeout raises. The keyframe decision itself is the JAX
+  package's on the same state.
 - `graphs.fetch`, the mapper's one read-back a stage, gives the bits of
   `.cpu().numpy()`."""
 
 import sys
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -431,6 +433,82 @@ def test_keyframe_wait_past_its_timeout_raises(monkeypatch):
         release.set()
         monkeypatch.undo()  # shutdown joins the mapper within the real timeout
         slam.shutdown()
+
+
+class _StubKeyFrame:
+    def __init__(self, tracked: int):
+        self.tracked = tracked
+
+    def tracked_map_points(self, min_obs, map_):
+        return self.tracked
+
+
+class _StubMapper:
+    def __init__(self, idle: bool):
+        self.idle, self.n_interrupts = idle, 0
+
+    def accepting(self):
+        return self.idle
+
+    def interrupt_ba(self):
+        self.n_interrupts += 1
+
+
+class _StubMap:
+    def __init__(self, n_kfs: int, ref_tracked: int, last_kf_frame: int):
+        self.keyframes = {1: _StubKeyFrame(ref_tracked), 2: None}
+        self._n_kfs, self.last_kf_frame = n_kfs, last_kf_frame
+
+    def n_keyframes(self):
+        return self._n_kfs
+
+
+class _StubTracker:
+    """What `_need_new_keyframe` reads of a tracker, in either package."""
+
+    def __init__(self, frame: int, n_kfs: int, inliers: int, ref_tracked: int, idle: bool,
+                 last_kf_frame: int, last_reloc: int):
+        self.map = _StubMap(n_kfs, ref_tracked, last_kf_frame)
+        self.current = types.SimpleNamespace(id=frame)
+        self.last_reloc_frame_id, self.max_frames, self.min_frames = last_reloc, 30, 0
+        self.ref_kf_id, self.last_kf_id = 1, 2
+        self.matches_inliers = inliers
+        self.local_mapper = _StubMapper(idle)
+
+    def last_kf_frame_id(self):
+        return self.map.last_kf_frame
+
+
+# case: ((frame, keyframes, inliers, the reference keyframe's tracked
+# points, mapper idle, the last keyframe's frame, the last relocalization's
+# frame), (new keyframe, calls of interrupt_ba))
+_DECISIONS = {
+    "idle mapper: insert": ((40, 5, 60, 100, True, 38, -100), (True, 0)),
+    "busy mapper past max_frames (c1a): drop, interrupt BA": ((80, 5, 60, 100, False, 40, -100), (False, 1)),
+    "busy mapper before max_frames: drop": ((41, 5, 60, 100, False, 40, -100), (False, 0)),
+    "idle mapper past max_frames (c1a): insert": ((80, 5, 60, 100, True, 40, -100), (True, 0)),
+    "inliers near the reference keyframe's (no c2): none": ((80, 5, 95, 100, True, 40, -100), (False, 0)),
+    "15 inliers or fewer (no c2): none": ((80, 5, 15, 100, False, 40, -100), (False, 0)),
+    "relocalization gate: none": ((50, 40, 60, 100, True, 10, 45), (False, 0)),
+    "relocalization gate open with few keyframes: insert": ((50, 20, 60, 100, True, 10, 45), (True, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(_DECISIONS))
+def test_need_new_keyframe_equals_the_jax_package(case):
+    """`Tracking._need_new_keyframe` of the port against the JAX package's
+    on the same tracker state: the same decision and the same calls of
+    `interrupt_ba`, for an idle and a busy mapper, the c1a gate (max_frames
+    since the last keyframe), c2 (the inliers against the reference
+    keyframe) and the relocalization gate."""
+    from ceres_mono_orb_slam2_tpu.models.tracking import Tracking as JaxTracking
+    from ceres_mono_orb_slam2_tpu_torch.models.tracking import Tracking
+
+    args, expected = _DECISIONS[case]
+    port, ref = _StubTracker(*args), _StubTracker(*args)
+    got, want = Tracking._need_new_keyframe(port), JaxTracking._need_new_keyframe(ref)
+    assert got == want and port.local_mapper.n_interrupts == ref.local_mapper.n_interrupts
+    assert (got, port.local_mapper.n_interrupts) == expected
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int64, torch.int32, torch.uint8, torch.bool])

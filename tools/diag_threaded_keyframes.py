@@ -1,8 +1,8 @@
 """Keyframe decisions of the threaded MonoSLAM at full rate, on one GPU.
 
     python tools/diag_threaded_keyframes.py [--world spiral|geo-circle] [--frames 32]
-                                            [--runs serial,threaded,eager,paced] [--no-wait] [--sample]
-                                            [--split]
+                                            [--runs serial,threaded,eager,paced] [--no-wait] [--prewarm]
+                                            [--sample] [--split]
 
 `--world spiral` (the default) renders the spiral ring world at 1241x376
 (chip_smoke.py's sequence, 2000 features); `--world geo-circle` runs
@@ -16,13 +16,17 @@ frame). For each run it prints the ATE of the tracked centres, the
 keyframes, the loops closed, the mapper's passes and seconds, the median
 and p95 frame ms, the mean ms of each mapping stage over every pass and
 over the passes after the first (a threaded mapper's first pass waits for
-the tracker's first captures), the frames that waited for local mapping
-(`MonoSLAM.n_keyframe_waits`) and the longest wait, and per keyframe
-decision (frame, keyframes, inliers, the reference keyframe's tracked
-points, mapper idle, queued keyframes, new keyframe); then each frame's
-method, inliers and ms, each mapping pass's stage ms and each closure's
-stage ms. `--no-wait` turns off the facade's wait after a wanted keyframe
-(the reference's behaviour: the keyframe is dropped); `--sample` prints
+the tracker's first captures unless the system is prewarmed), the keyframes
+an idle mapper would have taken and the busy one could not (not taken), the
+tracker's calls of `LocalMapping.interrupt_ba`, the frames that waited for
+local mapping (`MonoSLAM.n_keyframe_waits`) and the longest wait, the wall
+ms of the first fused frame, and per keyframe decision (frame, keyframes,
+inliers, the reference keyframe's tracked points, mapper idle, queued
+keyframes, new keyframe, not taken); then each frame's method, inliers and
+ms, each mapping pass's stage ms and each closure's stage ms. `--no-wait`
+turns off the facade's wait after a wanted keyframe (the reference's
+behaviour: the keyframe is dropped); `--prewarm` calls `MonoSLAM.prewarm`
+before frame 0 and prints its phases; `--sample` prints
 per-thread stack samples of the threaded runs (tools/prof_torch_slam.py's
 ThreadSampler); `--split` prints, per mapping pass on average, where the
 mapping thread's wall time went: waiting for and holding `map.update_lock`,
@@ -91,16 +95,26 @@ class GeoCircle:
 
 def _logged_decision(need):
     """`Tracking._need_new_keyframe` that appends its inputs and result to
-    `tracker.decisions`."""
+    `tracker.decisions`: a keyframe is not taken where an idle mapper
+    would have taken it and the busy one could not (asked again with the
+    mapper idle, which leaves the state as it was)."""
     def decide(self):
         m = self.map
         n_kfs = m.n_keyframes()
         ref_kf = m.keyframes.get(self.ref_kf_id)
         ref_matches = ref_kf.tracked_map_points(3 if n_kfs > 2 else 2, m) if ref_kf else 0
-        idle = self.local_mapper.accepting() if self.local_mapper else True
-        new = need(self)
+        lm = self.local_mapper
+        idle = lm.accepting()
+        new = dropped = need(self)
+        if not idle:  # would an idle mapper have taken a keyframe?
+            wanted, lm.accepting = self.keyframe_wanted, lambda: True
+            try:
+                dropped = need(self)
+            finally:
+                del lm.accepting
+                self.keyframe_wanted = wanted
         self.decisions.append((self.current.id, n_kfs, self.matches_inliers, ref_matches, idle,
-                               len(self.local_mapper.queue), new))
+                               len(lm.queue), new, dropped and not new))
         return new
 
     return decide
@@ -204,13 +218,23 @@ _SPLIT_CALLS = ((mapping_batch, "triangulate_with_neighbors", "triangulation cal
                 (twoview, "smallest_eigvecs", None))
 
 
-def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool, split: bool):
+def run(name: str, seq, cfg, n: int, no_wait: bool, prewarm: bool, sample: bool, split: bool):
     threaded = name != "serial"
     kw = dict(threaded=threaded, graphs=name != "eager")
     slam = seq.system(**kw) if isinstance(seq, GeoCircle) else MonoSLAM(cfg, device="cuda", **kw)
     slam.tracker.decisions = []
+    interrupts, interrupt = [], slam.local_mapper.interrupt_ba
+
+    def counted_interrupt():
+        interrupts.append(slam.tracker.current.id)
+        interrupt()
+
+    slam.local_mapper.interrupt_ba = counted_interrupt
     if no_wait:
         slam._wait_for_wanted_keyframe = lambda: None
+    if prewarm:
+        h, w = np.asarray(seq.images[0]).shape[-2:]
+        print(f"{name}: prewarm phases (s since its start) {slam.prewarm(h, w)}", flush=True)
     splitter, plain = (_Split(slam), [getattr(mod, fn) for mod, fn, _ in _SPLIT_CALLS]) if split else (None, [])
     for (mod, fn, key), f in zip(_SPLIT_CALLS, plain):
         setattr(mod, fn, splitter.eigensolver(f) if key is None else splitter.timed(key, f))
@@ -220,11 +244,15 @@ def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool, split: bool):
     if sampler:
         sampler.__enter__()
     frame_holds = []  # ms the tracker's thread held map.update_lock a frame (`--split`)
+    fused = []  # the frames that fused
     for i in range(n):
         held = splitter.ms["other thread lock held"] if splitter else 0.0
+        n_fused = slam.tracker.n_fused_frames
         t = time.perf_counter()
         poses.append(slam.track_monocular(seq.images[i], float(seq.timestamps[i])))
         frame_ms.append((time.perf_counter() - t) * 1e3)
+        if slam.tracker.n_fused_frames > n_fused:
+            fused.append(i)
         if splitter:
             frame_holds.append(splitter.ms["other thread lock held"] - held)
         if name == "paced":
@@ -236,6 +264,7 @@ def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool, split: bool):
     wall = time.perf_counter() - t0
     for (mod, fn, _), f in zip(_SPLIT_CALLS, plain):
         setattr(mod, fn, f)
+    first_fused = f"{frame_ms[fused[0]]:.1f}" if fused else "n/a"
     idx = [i for i, T in enumerate(poses) if T is not None]
     first = min(idx) if idx else n
     tracked_pct = 100.0 * len(idx) / max(n - first, 1)
@@ -252,12 +281,15 @@ def run(name: str, seq, cfg, n: int, no_wait: bool, sample: bool, split: bool):
     print(f"{name}: ATE {ate!r} %, sum of centres {float(est.sum())!r}, keyframes {slam.map.n_keyframes()}, "
           f"loops closed {lc.n_loops_closed if lc else 0}, passes {len(lm.pass_ms)}, mapper {mapper_s:.2f} s, "
           f"wall {wall:.2f} s, frame ms (10+) median {np.median(frame_ms[10:]):.1f}, p95 "
-          f"{np.percentile(frame_ms[10:], 95):.1f}, max {max(frame_ms):.1f}, keyframe waits "
-          f"{slam.n_keyframe_waits}, longest {slam.max_keyframe_wait_ms:.1f} ms, waits ms "
-          f"{[round(w, 1) for w in slam.keyframe_wait_ms]}", flush=True)
+          f"{np.percentile(frame_ms[10:], 95):.1f}, max {max(frame_ms):.1f}, first fused frame {first_fused} ms, "
+          f"keyframes not taken {sum(d[-1] for d in slam.tracker.decisions)}, local BAs interrupted by the "
+          f"tracker {len(interrupts)}, keyframe waits {slam.n_keyframe_waits}, longest "
+          f"{slam.max_keyframe_wait_ms:.1f} ms, waits ms {[round(w, 1) for w in slam.keyframe_wait_ms]}",
+          flush=True)
     if splitter:
         print(f"{name}: split: {splitter.report(frame_holds)}", flush=True)
-    print("  decisions (frame, keyframes, inliers, reference tracked points, mapper idle, queued, new):",
+    print("  decisions (frame, keyframes, inliers, reference tracked points, mapper idle, queued, new, "
+          "not taken):",
           slam.tracker.decisions)
     print("  frames (id, method, inliers, ms):", [(st["frame_id"], st["method"], st.get("inliers_local"),
                                                    round(st["track_ms"])) for st in slam.tracker.frame_stats])
@@ -277,6 +309,7 @@ def main() -> int:
     ap.add_argument("--runs", default="serial,threaded,eager,paced")
     ap.add_argument("--no-wait", action="store_true",
                     help="drop a keyframe the busy mapper cannot take, as the reference does")
+    ap.add_argument("--prewarm", action="store_true", help="MonoSLAM.prewarm before frame 0")
     ap.add_argument("--sample", action="store_true", help="per-thread stack samples of threaded runs")
     ap.add_argument("--split", action="store_true", help="where a mapping pass's wall time goes")
     args = ap.parse_args()
@@ -295,7 +328,7 @@ def main() -> int:
     tracking.Tracking._need_new_keyframe = _logged_decision(tracking.Tracking._need_new_keyframe)
     print(torch.cuda.get_device_name(0), flush=True)
     for name in args.runs.split(","):
-        run(name, seq, cfg, n, args.no_wait, args.sample, args.split)
+        run(name, seq, cfg, n, args.no_wait, args.prewarm, args.sample, args.split)
     return 0
 
 
